@@ -1,0 +1,31 @@
+"""Stateless challenge issuance (a copy of `banjax_tpu/challenge/issuer.py`
+without its failpoint).
+
+A challenge cookie is a PURE function of (secret, binding, expiry) —
+hmac[20] ‖ zeros[32] ‖ expiry_be8, base64'd, the reference's exact wire
+layout (crypto/challenge.py; byte-compatible with the unchanged
+client-side JS solvers). Issuing one therefore holds zero per-IP state:
+state enters only when a challenge is *failed* (challenge/failures.py).
+The decision chain's 429 and 401 paths issue through `issue()`.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+from banjax_tpu_torch.challenge import stats as challenge_stats
+from banjax_tpu_torch.crypto.challenge import new_challenge_cookie_at
+
+
+def issue(
+    secret_key: str,
+    cookie_ttl_seconds: int,
+    client_binding: str,
+    now_unix: Optional[float] = None,
+) -> str:
+    """Issue one signed expiring challenge cookie."""
+    now = time.time() if now_unix is None else now_unix
+    cookie = new_challenge_cookie_at(secret_key, int(now) + cookie_ttl_seconds, client_binding)
+    challenge_stats.get_stats().note_issued()
+    return cookie

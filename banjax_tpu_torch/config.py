@@ -1,11 +1,14 @@
-"""The slice of the banjax YAML config that the regex rate-limit path reads.
+"""The slice of the banjax YAML config that the port's paths read.
 
 The port reads the same YAML file as the JAX package
 (`banjax_tpu/config/schema.py`) with the same key names and the same
-strict scalar typing, but keeps only the keys this path uses: the
-rate-limit rules, the allowlists, `disable_logging`, the decision TTL
-and the `matcher_*` keys. Every other key is ignored, as the full schema
-ignores keys it does not know.
+strict scalar typing, but keeps only the keys its two paths use: for the
+regex rate-limit log path the rules, the allowlists, `disable_logging`,
+the decision TTL and the `matcher_*` keys; for the `/auth_request`
+decision chain the decision lists, the password, session and challenge
+keys and the `challenge_*` keys of the challenge plane. Every other key
+is ignored, as the full schema ignores keys it does not know.
+`load_pages` embeds the two challenge pages as `ConfigHolder` does.
 
 `RegexWithRate.from_yaml_dict` is a copy of the schema's: RE2-dialect
 check, Python `re` compile, Go's truncating `interval * 1e9`.
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
+from pathlib import Path
 from typing import Any, Dict, List
 
 import yaml
@@ -80,6 +84,45 @@ class Config:
     # the port runs only the single-program chunk commit; "off" (the JAX
     # package's two-program path) is refused by TorchMatcher
     pallas_single_kernel: str = "auto"
+    # --- the /auth_request decision chain
+    standalone_testing: bool = False
+    iptables_ban_seconds: int = 0
+    hostname: str = ""  # not a YAML key: the serving process sets it
+    hmac_secret: str = ""
+    disable_kafka: bool = False
+    sitewide_sha_inv_list: Dict[str, str] = dataclasses.field(default_factory=dict)
+    per_site_user_agent_decision_lists: Dict[str, Dict[str, List[str]]] = dataclasses.field(
+        default_factory=dict
+    )
+    global_user_agent_decision_lists: Dict[str, List[str]] = dataclasses.field(
+        default_factory=dict
+    )
+    password_hashes: Dict[str, str] = dataclasses.field(default_factory=dict)
+    password_protected_paths: Dict[str, List[str]] = dataclasses.field(default_factory=dict)
+    password_protected_path_exceptions: Dict[str, List[str]] = dataclasses.field(
+        default_factory=dict
+    )
+    password_hash_roaming: Dict[str, str] = dataclasses.field(default_factory=dict)
+    password_persite_cookie_ttl_seconds: Dict[str, int] = dataclasses.field(default_factory=dict)
+    use_user_agent_in_cookie: Dict[str, bool] = dataclasses.field(default_factory=dict)
+    sites_to_disable_baskerville: Dict[str, bool] = dataclasses.field(default_factory=dict)
+    sha_inv_path_exceptions: Dict[str, List[str]] = dataclasses.field(default_factory=dict)
+    too_many_failed_challenges_interval_seconds: int = 0
+    too_many_failed_challenges_threshold: int = 0
+    password_cookie_ttl_seconds: int = 0
+    sha_inv_cookie_ttl_seconds: int = 0
+    sha_inv_expected_zero_bits: int = 0
+    sha_inv_challenge_html: str = ""
+    password_protected_path_html: str = ""
+    challenger_bytes: bytes = b""      # the pages, embedded by load_pages
+    password_page_bytes: bytes = b""
+    session_cookie_hmac_secret: str = ""
+    session_cookie_ttl_seconds: int = 0
+    session_cookie_not_verify: bool = False
+    # the challenge plane
+    challenge_device_verify: bool = False
+    challenge_verify_batch_max: int = 256
+    challenge_failure_state_max: int = 0
 
 
 _SCALAR_KEYS = {
@@ -92,9 +135,36 @@ _SCALAR_KEYS = {
     "matcher_prefilter": bool,
     "matcher_prefilter_cand_frac": float,
     "pallas_single_kernel": str,
+    "standalone_testing": bool,
+    "iptables_ban_seconds": int,
+    "hmac_secret": str,
+    "disable_kafka": bool,
+    "too_many_failed_challenges_interval_seconds": int,
+    "too_many_failed_challenges_threshold": int,
+    "password_cookie_ttl_seconds": int,
+    "sha_inv_cookie_ttl_seconds": int,
+    "sha_inv_expected_zero_bits": int,
+    "sha_inv_challenge_html": str,
+    "password_protected_path_html": str,
+    "session_cookie_hmac_secret": str,
+    "session_cookie_ttl_seconds": int,
+    "session_cookie_not_verify": bool,
+    "challenge_device_verify": bool,
+    "challenge_verify_batch_max": int,
+    "challenge_failure_state_max": int,
 }
 
-_DICT_KEYS = ("global_decision_lists", "per_site_decision_lists", "disable_logging")
+_DICT_KEYS = (
+    "global_decision_lists", "per_site_decision_lists", "disable_logging",
+    "sitewide_sha_inv_list", "per_site_user_agent_decision_lists",
+    "global_user_agent_decision_lists", "password_hashes",
+    "password_protected_paths", "password_protected_path_exceptions",
+    "password_hash_roaming", "password_persite_cookie_ttl_seconds",
+    "use_user_agent_in_cookie", "sites_to_disable_baskerville",
+    "sha_inv_path_exceptions",
+)
+
+_PAGES_DIR = Path(__file__).resolve().parent / "httpapi" / "pages"
 
 
 def config_from_yaml_text(text: str) -> Config:
@@ -143,4 +213,26 @@ def config_from_yaml_text(text: str) -> Config:
             "config key pallas_single_kernel: expected auto|on|off, got "
             f"{cfg.pallas_single_kernel!r}"
         )
+    if cfg.challenge_verify_batch_max < 1:
+        raise ValueError(
+            "config key challenge_verify_batch_max: expected >= 1, got "
+            f"{cfg.challenge_verify_batch_max}"
+        )
+    if cfg.challenge_failure_state_max < 0:
+        raise ValueError(
+            "config key challenge_failure_state_max: expected 0 (unbounded) "
+            f"or a positive entry count, got {cfg.challenge_failure_state_max}"
+        )
+    return cfg
+
+
+def load_pages(cfg: Config) -> Config:
+    """Embed the SHA-inverse challenge page and the password page, from the
+    configured paths or the port's copies (`config/holder.py:45-55`)."""
+    cfg.challenger_bytes = Path(
+        cfg.sha_inv_challenge_html or _PAGES_DIR / "sha-inverse-challenge.html"
+    ).read_bytes()
+    cfg.password_page_bytes = Path(
+        cfg.password_protected_path_html or _PAGES_DIR / "password-protected-path.html"
+    ).read_bytes()
     return cfg

@@ -1,5 +1,6 @@
-"""The four-valued verdict (copy of `banjax_tpu/decisions/model.py`'s
-Decision): ordered Allow < Challenge < NginxBlock < IptablesBlock."""
+"""The four-valued verdict and the sitewide SHA-inv fail action (copies of
+`banjax_tpu/decisions/model.py`'s Decision and FailAction): Decision is
+ordered Allow < Challenge < NginxBlock < IptablesBlock."""
 
 from __future__ import annotations
 
@@ -36,3 +37,24 @@ def parse_decision(s: str) -> Decision:
         return _STRING_TO_DECISION[s]
     except KeyError:
         raise ValueError(f"invalid decision: {s}") from None
+
+
+class FailAction(enum.IntEnum):
+    """What a sitewide SHA-inv challenge does on repeated failure
+    (decision.go:68-85)."""
+
+    BLOCK = 1
+    NO_BLOCK = 2
+
+
+_STRING_TO_FAIL_ACTION = {
+    "block": FailAction.BLOCK,
+    "no_block": FailAction.NO_BLOCK,
+}
+
+
+def parse_fail_action(s: str) -> FailAction:
+    try:
+        return _STRING_TO_FAIL_ACTION[s]
+    except KeyError:
+        raise ValueError(f"invalid fail action: {s}") from None

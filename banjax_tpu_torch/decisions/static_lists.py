@@ -1,9 +1,13 @@
-"""The allowlist half of the static decision lists.
+"""Static (config-sourced) decision lists.
 
-Copy of the allowlist parts of `banjax_tpu/decisions/static_lists.py`:
-per-site and global IP→Decision maps plus one IP/CIDR filter per
-decision, and `check_is_allowed`, the log tailer's allowlist exemption
-(checked per-site exact, per-site filter, global exact, global filter).
+Reference behavior (Go banjax): internal/decision.go:88-374. A copy of
+`banjax_tpu/decisions/static_lists.py`: per-site and global IP→Decision
+maps (plain IPs exact, every list also as one IP/CIDR filter per
+decision, checked in the fixed order Allow → Challenge → NginxBlock →
+IptablesBlock), the per-site and global User-Agent lists, and the
+sitewide SHA-inv site→FailAction map. `check_is_allowed` is the log
+tailer's allowlist exemption; the other checks are steps 3-6 and 8 of
+the `/auth_request` decision chain.
 """
 
 from __future__ import annotations
@@ -13,7 +17,26 @@ import socket
 from typing import Dict, List, Optional, Tuple
 
 from banjax_tpu_torch.config import Config
-from banjax_tpu_torch.decisions.model import Decision, parse_decision
+from banjax_tpu_torch.decisions.model import (
+    Decision,
+    FailAction,
+    parse_decision,
+    parse_fail_action,
+)
+from banjax_tpu_torch.decisions.ua_lists import (
+    UARules,
+    build_per_site_ua_rules,
+    build_ua_rules,
+    check_ua_decision,
+)
+
+# The iteration order of per-decision CIDR filters (decision.go:127,149).
+_FILTER_CHECK_ORDER = (
+    Decision.ALLOW,
+    Decision.CHALLENGE,
+    Decision.NGINX_BLOCK,
+    Decision.IPTABLES_BLOCK,
+)
 
 
 def _fast_parse_ip(ip_string: str) -> Optional[Tuple[int, int]]:
@@ -81,7 +104,7 @@ class IPFilter:
 
 
 class StaticDecisionLists:
-    """Config-sourced decision maps, as far as the allowlist needs them."""
+    """Config-sourced decision maps (decision.go:278-374)."""
 
     def __init__(self, config: Config):
         self.global_decision_lists: Dict[str, Decision] = {}
@@ -106,6 +129,52 @@ class StaticDecisionLists:
                     self.per_site_ip_filters.setdefault(site, {})[decision] = (
                         IPFilter(list(ips))
                     )
+        self.sitewide_sha_inv_list: Dict[str, FailAction] = {
+            site: parse_fail_action(fa) for site, fa in config.sitewide_sha_inv_list.items()
+        }
+        self.global_ua_rules: UARules = build_ua_rules(config.global_user_agent_decision_lists)
+        self.per_site_ua_rules: Dict[str, UARules] = build_per_site_ua_rules(
+            config.per_site_user_agent_decision_lists
+        )
+
+    def check_per_site(self, site: str, client_ip: str) -> Tuple[Optional[Decision], bool]:
+        """decision.go:115-139 — exact map first, then per-decision filters in order."""
+        site_map = self.per_site_decision_lists.get(site)
+        if site_map is not None and client_ip in site_map:
+            return site_map[client_ip], True
+        site_filters = self.per_site_ip_filters.get(site)
+        if site_filters:
+            for decision in _FILTER_CHECK_ORDER:
+                f = site_filters.get(decision)
+                if f is not None and f.allowed(client_ip):
+                    return decision, True
+        return None, False
+
+    def check_global(self, client_ip: str) -> Tuple[Optional[Decision], bool]:
+        """decision.go:141-162."""
+        if client_ip in self.global_decision_lists:
+            return self.global_decision_lists[client_ip], True
+        for decision in _FILTER_CHECK_ORDER:
+            f = self.global_ip_filters.get(decision)
+            if f is not None and f.allowed(client_ip):
+                return decision, True
+        return None, False
+
+    def check_per_site_user_agent(self, site: str, user_agent: str) -> Tuple[Optional[Decision], bool]:
+        """decision.go:164-171."""
+        rules = self.per_site_ua_rules.get(site)
+        if rules is None:
+            return None, False
+        return check_ua_decision(rules, user_agent)
+
+    def check_global_user_agent(self, user_agent: str) -> Tuple[Optional[Decision], bool]:
+        """decision.go:173-176."""
+        return check_ua_decision(self.global_ua_rules, user_agent)
+
+    def check_sitewide_sha_inv(self, site: str) -> Tuple[Optional[FailAction], bool]:
+        """decision.go:178-183."""
+        fa = self.sitewide_sha_inv_list.get(site)
+        return fa, fa is not None
 
     def check_is_allowed(self, site: str, client_ip: str) -> bool:
         site_map = self.per_site_decision_lists.get(site)

@@ -1,22 +1,29 @@
-"""Banner: the ban effector the rate-limit path streams into.
+"""Banner: the ban effector both paths stream into.
 
-`log_regex_ban` writes the same ban-log bytes as `banjax_tpu/effectors/
-banner.py` (field order of the reference's LogJson struct, compact JSON,
-local-time "%Y-%m-%dT%H:%M:%S", the `_temp` file for hosts in
-`disable_logging`). `ban_or_challenge_ip` records the call; the dynamic
-decision lists and ipset it feeds in the JAX package are not part of the
-port yet.
+Reference behavior (Go banjax): internal/iptables.go:117-331. A copy of
+`banjax_tpu/effectors/banner.py` without ipset: `ban_or_challenge_ip`
+inserts an expiring decision into the dynamic lists (which is how a regex
+ban or challenge from the log path reaches `/auth_request`), and the two
+ban logs write the same bytes as the JAX package's (field order of the
+reference's LogJson struct, compact JSON, local-time
+"%Y-%m-%dT%H:%M:%S", the `_temp` file for hosts in `disable_logging`).
+The kernel edge (ipset, netlink) is not ported yet, so `_ban_ip` keeps
+only its skip rules.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import threading
 import time
 from typing import List, TextIO, Tuple
 
 from banjax_tpu_torch.config import Config
+from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
 from banjax_tpu_torch.decisions.model import Decision
+
+log = logging.getLogger(__name__)
 
 
 def _log_json(
@@ -57,9 +64,22 @@ class BannerInterface:
     ) -> None:
         raise NotImplementedError
 
+    def log_failed_challenge_ban(
+        self, config: Config, ip: str, challenge_type: str, host: str, path: str,
+        too_many_failed_challenges_threshold: int, user_agent: str,
+        decision: Decision, method: str,
+    ) -> None:
+        raise NotImplementedError
+
 
 class Banner(BannerInterface):
-    def __init__(self, ban_log_file: TextIO, ban_log_file_temp: TextIO):
+    def __init__(
+        self,
+        decision_lists: DynamicDecisionLists,
+        ban_log_file: TextIO,
+        ban_log_file_temp: TextIO,
+    ):
+        self.decision_lists = decision_lists
         self._ban_log = ban_log_file
         self._ban_log_temp = ban_log_file_temp
         self._log_lock = threading.Lock()
@@ -67,7 +87,12 @@ class Banner(BannerInterface):
         self.bans: List[Tuple[str, Decision, str]] = []
 
     def ban_or_challenge_ip(self, config: Config, ip: str, decision: Decision, domain: str) -> None:
+        """iptables.go:273-294."""
         self.bans.append((ip, decision, domain))
+        expires = time.time() + config.expiring_decision_ttl_seconds
+        self.decision_lists.update(ip, expires, decision, False, domain)
+        if decision == Decision.IPTABLES_BLOCK:
+            _ban_ip(config, ip)
 
     def log_regex_ban(
         self, config: Config, log_time_unix: float, ip: str, rule_name: str,
@@ -93,7 +118,45 @@ class Banner(BannerInterface):
             number_of_fails=1,
             disable_logging=disable_logging,
         )
+        self._write(line, disable_logging)
+
+    def log_failed_challenge_ban(
+        self, config: Config, ip: str, challenge_type: str, host: str, path: str,
+        too_many_failed_challenges_threshold: int, user_agent: str,
+        decision: Decision, method: str,
+    ) -> None:
+        """iptables.go:230-271."""
+        disable_logging = 1 if config.disable_logging.get(host) else 0
+        line = _log_json(
+            path=path,
+            timestring=_format_ban_time(time.time()),
+            trigger=f"failed challenge {challenge_type}",
+            client_ua=user_agent,
+            client_ip=ip,
+            rule_type="failed_challenge",
+            http_method=method,
+            http_schema="https",
+            http_host=host,
+            action=str(decision),
+            number_of_fails=too_many_failed_challenges_threshold,
+            disable_logging=disable_logging,
+        )
+        self._write(line, disable_logging)
+
+    def _write(self, line: str, disable_logging: int) -> None:
         target = self._ban_log_temp if disable_logging == 1 else self._ban_log
         with self._log_lock:
             target.write(line + "\n")
             target.flush()
+
+
+def _ban_ip(config: Config, ip: str) -> None:
+    """iptables.go:313-331: skip localhost and standalone testing; the
+    ipset add that follows in the reference is not ported yet."""
+    log.info("ban_ip: %s timeout %s", ip, config.iptables_ban_seconds)
+    if ip == "127.0.0.1":
+        log.info("ban_ip: not going to block localhost")
+        return
+    if config.standalone_testing:
+        log.info("ban_ip: not calling ipset in testing")
+        return

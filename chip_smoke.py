@@ -15,6 +15,18 @@ is served by the classic fallback. The first chunks also go through a
 CPU matcher running the plain versions; ban-log bytes and per-line
 results must be identical.
 
+Then the second path, the `/auth_request` decision chain with the
+challenge plane: kernel C (the batched SHA-256 PoW check) against its
+plain version and hashlib at up to 1,048,576 lanes, and the chain
+(`build_decision_chain`, `decision_for_nginx`) on the deploy
+configuration under a challenge storm from 32 request threads —
+131,072 distinct challengers, solved, under-target, expired, torn and
+wrong-binding cookies, offenders banned past the failure threshold, and
+IPs challenged through the log path by a TorchMatcher on the same
+Banner. A prefix of that stream also runs through a chain on the CPU
+(plain versions); responses, result records, ban logs and state must be
+identical.
+
 Each phase prints one JSON line; then the kernels line, the card's name
 and power limit, and as the last line {"ok": true, "device": ...}. Any
 failed check raises, and the script exits non-zero with no result. It
@@ -23,10 +35,15 @@ needs a CUDA device and exits non-zero without one.
 
 from __future__ import annotations
 
+import base64
+import contextlib
+import hashlib
 import io
 import json
+import random
 import subprocess
 import sys
+import threading
 import time
 
 # the deploy configuration at a deployment's size
@@ -44,11 +61,34 @@ FULL = dict(
 )
 SEED = 7
 
+# the challenge storm on the deploy configuration (deploy/banjax-config.yaml)
+CHALLENGE = dict(
+    challengers=131_072,   # distinct IPs, each with a cookieless first hit
+    solved=4_096,          # return with a cookie solved at the target
+    under=2_048,           # return with an under-target solution
+    expired=1_024,
+    torn=1_024,
+    wrong_binding=1_024,
+    offenders=64,          # fail past the threshold: banned
+    log_lines=4_096,       # one log chunk through a TorchMatcher on the Banner
+    log_ips=256,           # IPs in it that hit the deploy's challengeme rule
+    threads=32,
+    cross_check=2_048,     # prefix of the stream also run on the CPU
+    # 1 and 2 are the shapes the storm's dispatches mostly take
+    pow_lanes=(1, 2, 32, 256, 4_096, 1_048_576),
+)
+SHA_HOST = "sha.example"   # the one host in sitewide_sha_inv_list (block)
+LOG_HOST = "example.org"
+
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory and
 # non-tensor 32-bit throughput (the data sheet gives no integer-ALU rate;
 # 32-bit integer operations are counted against the float32 rate)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# Hopper's INT32 (ALU pipe) issue rate, from the architecture's 16 INT32
+# lanes per SM sub-partition: 132 SMs x 64 lanes x 1.98 GHz boost, a
+# quarter of PEAK_OPS_PER_S
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # 32-bit operations per (line byte, NFA word) of kernel A: table-row
 # select, shift, shift_in mask, inject or, selfloop and/or, class mask,
 # accept and/or, end check; +3 for the cross-word carry
@@ -56,10 +96,24 @@ NFA_OPS = 10
 NFA_CARRY_OPS = 3
 # per event of kernel B: the step's selects, borrow arithmetic and compares
 SCAN_OPS = 24
+# per lane of kernel C, counted from csrc/pow_verify.cu with every
+# three-input bitwise function as one LOP3: 64 rounds x 17 (Sigma1 and
+# Sigma0 at 3 funnel shifts + one three-way xor each, Ch and Maj one each,
+# 7 adds), 48 schedule steps x 11 (sigma0 and sigma1 at 2 funnel shifts,
+# a shift and one three-way xor each, 3 adds), 13 loads + 13 byte swaps,
+# 8 digest adds, and the leading-zero count (8 clz, 8 adds, 8 compares)
+POW_OPS = 64 * 17 + 48 * 11 + 26 + 8 + 24
+# the part of POW_OPS that only the ALU pipe runs (funnel shifts, shifts,
+# LOP3, byte swaps, clz, compares); nvcc may issue the adds on the FMA
+# pipe as IMAD. Over INT32_OPS_PER_S it gives `alu_bound_ms`, a tighter
+# bound than `bound_ms`, which uses the float32 rate as rows A and B do
+POW_ALU_OPS = 64 * 10 + 48 * 8 + 13 + 8 + 8
+POW_BYTES = 52 + 4  # message in, count out
 
 REPLACES = {
     "nfa_match": "banjax_tpu/matcher/kernels/nfa_match.py:212",
     "window_scan": "banjax_tpu/matcher/kernels/fused_match_window.py:70",
+    "pow_verify": "banjax_tpu/matcher/kernels/pow_verify.py:85",
 }
 
 
@@ -167,17 +221,18 @@ def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
 
     from banjax_tpu_torch import workload
     from banjax_tpu_torch.config import config_from_yaml_text
+    from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
     from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
     from banjax_tpu_torch.effectors.banner import Banner
     from banjax_tpu_torch.matcher import encode
-    from banjax_tpu_torch.matcher.kernels import _build, nfa_match
+    from banjax_tpu_torch.matcher.kernels import _build, nfa_match, pow_verify
     from banjax_tpu_torch.matcher.kernels import fused_match_window as fmw
     from banjax_tpu_torch.matcher.runner import TorchMatcher
 
-    # ---- phase 1: build ----
-    build_s = _build.build_all([nfa_match.KERNEL, fmw.KERNEL]) if dev.type == "cuda" else 0.0
-    emit({"phase": "build", "seconds": build_s,
-          "libraries": [str(k.path.name) for k in (nfa_match.KERNEL, fmw.KERNEL)]})
+    # ---- phase 1: build (one nvcc per source, all at once) ----
+    libs = (nfa_match.KERNEL, fmw.KERNEL, pow_verify.KERNEL)
+    build_s = _build.build_all(list(libs)) if dev.type == "cuda" else 0.0
+    emit({"phase": "build", "seconds": build_s, "libraries": [str(k.path.name) for k in libs]})
 
     # ---- the workload ----
     patterns = workload.generate_rules(n_rules, seed=SEED)
@@ -198,7 +253,8 @@ def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
     def new_matcher(device):
         cfg = config_from_yaml_text(yaml_text)
         log = io.StringIO()
-        m = TorchMatcher(cfg, Banner(log, io.StringIO()), StaticDecisionLists(cfg), device=device)
+        banner = Banner(DynamicDecisionLists(start_sweeper=False), log, io.StringIO())
+        m = TorchMatcher(cfg, banner, StaticDecisionLists(cfg), device=device)
         return m, log
 
     t0 = time.perf_counter()
@@ -343,6 +399,480 @@ def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
     ]
 
 
+# ---------------------------------------------------------------- the second path
+
+
+def pow_bound_ms(lanes: int) -> tuple:
+    t_bytes = POW_BYTES * lanes / PEAK_BYTES_PER_S
+    t_ops = POW_OPS * lanes / PEAK_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def degenerate_payloads() -> list:
+    """All zeros, 51 zeros then 0x01, all 0xFF, and four payloads whose
+    digest starts with at least 10 zero bits (found by search)."""
+    from banjax_tpu_torch.crypto.challenge import count_zero_bits_from_left
+
+    out = [b"\x00" * 52, b"\x00" * 51 + b"\x01", b"\xff" * 52]
+    base = bytearray(random.Random(SEED).randbytes(52))
+    counter = 0
+    while len(out) < 7:
+        base[44:52] = counter.to_bytes(8, "big")
+        if count_zero_bits_from_left(hashlib.sha256(bytes(base)).digest()) >= 10:
+            out.append(bytes(base))
+        counter += 1
+    return out
+
+
+def run_kernel_pow(dev, pow_lanes) -> dict:
+    """Kernel C against its plain version (tolerance 0) and hashlib."""
+    import numpy as np
+    import torch
+
+    from banjax_tpu_torch.crypto.challenge import count_zero_bits_from_left
+    from banjax_tpu_torch.matcher.kernels import pow_verify
+
+    def hashlib_bits(payloads):
+        return [count_zero_bits_from_left(hashlib.sha256(p).digest()) for p in payloads]
+
+    rng = np.random.default_rng(SEED)
+    rows = {}
+    host_rate = None
+    for lanes in pow_lanes:
+        arr = rng.integers(0, 256, (lanes, pow_verify.POW_MESSAGE_BYTES), dtype=np.uint8)
+        msg = torch.from_numpy(arr).to(dev)
+        got = pow_verify.leading_zero_bits(msg)
+        want = pow_verify.leading_zero_bits_plain(msg)
+        sync(dev)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        check(err == 0, f"kernel C ({lanes} lanes) is bit-identical to its plain version")
+        head = [arr[i].tobytes() for i in range(min(lanes, 4096))]
+        check(got[: len(head)].tolist() == hashlib_bits(head),
+              f"kernel C ({lanes} lanes) agrees with hashlib")
+        bound, by = pow_bound_ms(lanes)
+        rows[str(lanes)] = {
+            "lanes": lanes, "max_abs_err": err,
+            "ms": time_ms(lambda: pow_verify.leading_zero_bits(msg), dev, 20),
+            "plain_ms": time_ms(lambda: pow_verify.leading_zero_bits_plain(msg), dev, 2),
+            "bound_ms": bound, "bound_by": by,
+            "alu_bound_ms": 1e3 * max(POW_BYTES * lanes / PEAK_BYTES_PER_S,
+                                      POW_ALU_OPS * lanes / INT32_OPS_PER_S),
+            "message_bytes": int(arr.nbytes),
+        }
+        if lanes == max(pow_lanes):
+            payloads = [arr[i].tobytes() for i in range(lanes)]
+            t0 = time.perf_counter()
+            hashlib_bits(payloads)
+            host_rate = lanes / (time.perf_counter() - t0)
+    degenerate = degenerate_payloads()
+    got = pow_verify.leading_zero_bits(pow_verify.pack_payloads(degenerate, dev)).tolist()
+    check(got == hashlib_bits(degenerate), "kernel C agrees with hashlib on degenerate payloads")
+    check(max(got) >= 10, "the degenerate payloads include solutions at the target")
+    emit({"phase": "kernel_pow", "tolerance": 0, "shapes": rows,
+          "degenerate_bits": got})
+    # context only (PyTorch has no SHA-256, so there is no library call)
+    emit({"phase": "pow_hashlib_host", "lanes": max(pow_lanes),
+          "cookies_per_s": host_rate})
+    return rows
+
+
+@contextlib.contextmanager
+def pinned(now: float, seed=None):
+    """Pin time.time/time.time_ns (and, with a seed, the session-id draws)
+    for the port's modules, which read them through those names."""
+    import secrets
+
+    saved = time.time, time.time_ns, secrets.randbits
+    time.time = lambda: now
+    time.time_ns = lambda: int(now) * 1_000_000_000
+    if seed is not None:
+        rng = random.Random(seed)
+        secrets.randbits = rng.getrandbits
+    try:
+        yield
+    finally:
+        time.time, time.time_ns, secrets.randbits = saved
+
+
+def solve(cookie: str, bits: int) -> str:
+    """solve_challenge_for_testing's search (first counter whose digest
+    has >= bits leading zero bits), with the 44-byte prefix hashed once."""
+    from banjax_tpu_torch.crypto.challenge import count_zero_bits_from_left
+
+    raw = bytearray(base64.standard_b64decode(cookie))
+    prefix = hashlib.sha256(bytes(raw[:44]))
+    counter = 0
+    while True:
+        h = prefix.copy()
+        h.update(counter.to_bytes(8, "big"))
+        if count_zero_bits_from_left(h.digest()) >= bits:
+            break
+        counter += 1
+    raw[44:52] = counter.to_bytes(8, "big")
+    return base64.standard_b64encode(bytes(raw)).decode()
+
+
+def under_target(cookie: str, bits: int) -> str:
+    from banjax_tpu_torch.crypto.challenge import count_zero_bits_from_left
+
+    raw = bytearray(base64.standard_b64decode(cookie))
+    for counter in range(1 << 20):
+        raw[44:52] = counter.to_bytes(8, "big")
+        if count_zero_bits_from_left(hashlib.sha256(bytes(raw[:52])).digest()) < bits:
+            return base64.standard_b64encode(bytes(raw)).decode()
+    raise RuntimeError("no under-target solution")
+
+
+def challenge_config(sitewide_host: str):
+    """The deploy configuration with two changes: hmac_secret set (the
+    deploy file sets challenge_cookie_secret, a key the schema does not
+    read, so it would sign with an empty secret) and one host in
+    sitewide_sha_inv_list with block."""
+    import yaml
+
+    from banjax_tpu_torch.config import config_from_yaml_text, load_pages
+
+    with open("deploy/banjax-config.yaml") as f:
+        raw = yaml.safe_load(f)
+    raw["hmac_secret"] = "chip-smoke-secret"
+    raw["sitewide_sha_inv_list"] = {sitewide_host: "block"}
+    return load_pages(config_from_yaml_text(yaml.safe_dump(raw)))
+
+
+def challenge_stream(cfg, now: int, challengers, solved, under, expired, torn,
+                     wrong_binding, offenders, log_ips):
+    """The storm as (ip, host, cookie or None, expected) requests; expected
+    is (status, X-Banjax-Decision header or None, ShaChallengeResult name,
+    wire_ok). Returns (phase A + B, phase C) as lists of per-client blocks:
+    A = returning clients and offenders in a seeded shuffle, B = one-shot
+    challengers, C = third hits of the failing clients and the clients the
+    log path challenged."""
+    from banjax_tpu_torch.crypto.challenge import new_challenge_cookie_at
+
+    secret, bits = cfg.hmac_secret, cfg.sha_inv_expected_zero_bits
+    ttl = cfg.sha_inv_cookie_ttl_seconds
+    threshold = cfg.too_many_failed_challenges_threshold
+    ip_of = lambda k: f"100.{(k >> 16) & 255}.{(k >> 8) & 255}.{k & 255}"
+    fresh = lambda ip: new_challenge_cookie_at(secret, now + ttl, ip)
+    first = (429, None, "ShaChallengeFailedNoCookie", False)
+    bad_wire = (429, None, "ShaChallengeFailedBadCookie", False)
+    bad_bits = (429, None, "ShaChallengeFailedBadCookie", True)
+    passed = (200, "ShaChallengePassed", "ShaChallengePassed", True)
+
+    bounds = {}
+    returning = 0
+    for kind, n in (("solved", solved), ("under", under), ("expired", expired),
+                    ("torn", torn), ("wrong", wrong_binding), ("offender", offenders)):
+        bounds[kind] = range(returning, returning + n)
+        returning += n
+    check(returning <= challengers, "the returning clients are among the challengers")
+
+    blocks_a, blocks_c = [], []
+    for kind, ks in bounds.items():
+        for k in ks:
+            ip = ip_of(k)
+            if kind == "solved":
+                blocks_a.append([(ip, SHA_HOST, None, first), (ip, SHA_HOST, solve(fresh(ip), bits), passed)])
+                continue
+            if kind == "offender":
+                bad = under_target(fresh(ip), bits)
+                block = [(ip, SHA_HOST, None, first)]
+                block += [(ip, SHA_HOST, bad, bad_bits)] * (threshold - 1)
+                block.append((ip, SHA_HOST, bad, (403, "TooManyFailedChallenges",
+                                                  "ShaChallengeFailedBadCookie", True)))
+                block.append((ip, SHA_HOST, bad, (403, "ExpiringBlock", None, False)))
+                blocks_a.append(block)
+                continue
+            if kind == "under":
+                cookie, exp = under_target(fresh(ip), bits), bad_bits
+            elif kind == "expired":
+                cookie, exp = new_challenge_cookie_at(secret, now - 10, ip), bad_wire
+            elif kind == "torn":
+                cookie, exp = fresh(ip)[:40], bad_wire
+            else:
+                cookie, exp = new_challenge_cookie_at(secret, now + ttl, "192.0.2.1"), bad_wire
+            blocks_a.append([(ip, SHA_HOST, None, first), (ip, SHA_HOST, cookie, exp)])
+            blocks_c.append([(ip, SHA_HOST, cookie, exp)])
+    random.Random(SEED).shuffle(blocks_a)
+    blocks_b = [[(ip_of(k), SHA_HOST, None, first)] for k in range(returning, challengers)]
+    for j in range(log_ips):
+        ip = f"101.0.{j >> 8}.{j & 255}"
+        blocks_c.append([
+            (ip, LOG_HOST, None, (429, None, "ShaChallengeFailedNoCookie", False)),
+            (ip, LOG_HOST, solve(fresh(ip), bits), (200, "ShaChallengePassed", "ShaChallengePassed", True)),
+        ])
+    return blocks_a + blocks_b, blocks_c, [ip_of(k) for k in bounds["offender"]]
+
+
+def log_chunk(now: float, lines: int, log_ips: int) -> list:
+    """One access-log chunk: each of log_ips IPs hits the deploy's
+    challengeme rule once; the rest is benign traffic from other IPs."""
+    rng = random.Random(SEED)
+    out = [f"{now - 5 + j * 1e-4:f} 101.0.{j >> 8}.{j & 255} GET {LOG_HOST} GET "
+           f"/challengeme/{j} HTTP/1.1 Mozilla/5.0 -" for j in range(log_ips)]
+    out += [f"{now - 5 + j * 1e-4:f} 102.0.{rng.randrange(64)}.{rng.randrange(256)} GET {LOG_HOST} "
+            f"GET /page/{j % 97} HTTP/1.1 Mozilla/5.0 -" for j in range(lines - log_ips)]
+    rng.shuffle(out)
+    return out
+
+
+def host_breakdown(state, cfg, now: int, dispatch_s: float, wall: float) -> dict:
+    """Where a request's time goes, one thread at a time, after the storm:
+    a cookieless first hit through the chain, one verification dispatch
+    of one lane (pack, copy in, kernel C, copy out), and hashlib for the
+    same payload."""
+    from banjax_tpu_torch.challenge.verifier import cpu_zero_bits
+    from banjax_tpu_torch.crypto.challenge import new_challenge_cookie_at, parse_cookie
+    from banjax_tpu_torch.httpapi.decision_chain import RequestInfo, decision_for_nginx
+
+    n = 2048
+    reqs = [RequestInfo(client_ip=f"103.0.{k >> 8}.{k & 255}", requested_host=SHA_HOST,
+                        requested_path="/", client_user_agent="Mozilla/5.0") for k in range(n)]
+    t0 = time.perf_counter()
+    for r in reqs:
+        decision_for_nginx(state, r)
+    first_hit_us = 1e6 * (time.perf_counter() - t0) / n
+    payloads = [b"".join(parse_cookie(new_challenge_cookie_at(
+        cfg.hmac_secret, now + 60, f"104.0.0.{k}"))[:2]) for k in range(256)]
+    state.challenge_verifier.submit(payloads[0])
+    t0 = time.perf_counter()
+    for p in payloads:
+        state.challenge_verifier.submit(p)
+    dispatch_us = 1e6 * (time.perf_counter() - t0) / len(payloads)
+    t0 = time.perf_counter()
+    for p in payloads:
+        cpu_zero_bits(p)
+    hashlib_us = 1e6 * (time.perf_counter() - t0) / len(payloads)
+    return {
+        "first_hit_us_one_thread": first_hit_us,
+        "one_lane_dispatch_us": dispatch_us, "hashlib_us": hashlib_us,
+        "dispatch_s_in_storm": dispatch_s, "dispatch_share_of_wall": dispatch_s / wall,
+    }
+
+
+def new_chain(cfg, dev):
+    from banjax_tpu_torch.cli import build_decision_chain
+    from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
+    from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
+    from banjax_tpu_torch.effectors.banner import Banner
+
+    banner = Banner(DynamicDecisionLists(start_sweeper=False), io.StringIO(), io.StringIO())
+    return build_decision_chain(cfg, banner, StaticDecisionLists(cfg), device=dev)
+
+
+def run_challenge(dev, challengers, solved, under, expired, torn, wrong_binding,
+                  offenders, log_lines, log_ips, threads, cross_check, pow_lanes,
+                  failure_state_max=None) -> list:
+    """Kernel C, the chain under the storm, and the cross-check; returns
+    kernel C's entry of the kernels line. Raises on any failed check.
+    `failure_state_max` replaces the deploy file's bound (for a rehearsal
+    at a smaller size)."""
+    import torch
+
+    from banjax_tpu_torch.challenge import stats as challenge_stats
+    from banjax_tpu_torch.challenge.verifier import cpu_zero_bits
+    from banjax_tpu_torch.cli import build_matcher
+    from banjax_tpu_torch.crypto.challenge import (
+        count_zero_bits_from_left,
+        new_challenge_cookie_at,
+        solve_challenge_for_testing,
+    )
+    from banjax_tpu_torch.decisions.model import Decision
+    from banjax_tpu_torch.httpapi.decision_chain import RequestInfo, decision_for_nginx
+    from banjax_tpu_torch.matcher.kernels import fused_match_window as fmw
+    from banjax_tpu_torch.matcher.kernels import nfa_match, pow_verify
+
+    pow_rows = run_kernel_pow(dev, pow_lanes)
+
+    # ---- the stream, made from SEED at a pinned clock ----
+    now = int(time.time())
+    cfg = challenge_config(SHA_HOST)
+    if failure_state_max is not None:
+        cfg.challenge_failure_state_max = failure_state_max
+    t0 = time.perf_counter()
+    head, tail, offender_ips = challenge_stream(
+        cfg, now, challengers, solved, under, expired, torn, wrong_binding, offenders, log_ips)
+    stream_s = time.perf_counter() - t0
+    sample = new_challenge_cookie_at(cfg.hmac_secret, now + 60, "198.51.100.7")
+    check(solve(sample, 10) == solve_challenge_for_testing(sample, 10),
+          "the stream's solver is solve_challenge_for_testing's search")
+
+    with pinned(float(now)):
+        # ---- the chain on the card, fed by a TorchMatcher on its Banner ----
+        t0 = time.perf_counter()
+        state = new_chain(cfg, dev)
+        setup_s = time.perf_counter() - t0
+        matcher = build_matcher(cfg, state.banner, state.static_lists, device=dev)
+        nfa_match.KERNEL.launches = fmw.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        matcher.consume_lines(log_chunk(now, log_lines, log_ips), now_unix=float(now))
+        sync(dev)
+        log_s = time.perf_counter() - t0
+        log_launches = {"nfa_match": nfa_match.KERNEL.launches, "window_scan": fmw.KERNEL.launches}
+        challenged = sorted(ip for ip, d, _ in state.banner.bans if d == Decision.CHALLENGE)
+        check(challenged == sorted(f"101.0.{j >> 8}.{j & 255}" for j in range(log_ips)),
+              "the log path challenged exactly the challengeme IPs")
+
+        # each IP's requests stay on one thread, in order
+        per_thread = [[] for _ in range(threads)]
+        thread_of = {}
+        for blocks in (head, tail):
+            for block in blocks:
+                ip = block[0][0]
+                per_thread[thread_of.setdefault(ip, len(thread_of) % threads)].extend(block)
+        n_requests = sum(len(t) for t in per_thread)
+        reqs = [[(RequestInfo(client_ip=ip, requested_host=host, requested_path="/",
+                              client_user_agent="Mozilla/5.0",
+                              cookies={} if c is None else {"deflect_challenge3": c}), c, exp)
+                 for ip, host, c, exp in t] for t in per_thread]
+        outcomes = [None] * threads
+        errors = []
+
+        def worker(i):
+            try:
+                out = []
+                for req, _, _ in reqs[i]:
+                    resp, result = decision_for_nginx(state, req)
+                    sha = result.sha_challenge_result
+                    out.append((resp.status, resp.headers.get("X-Banjax-Decision"),
+                                None if sha is None else str(sha)))
+                outcomes[i] = out
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        # wall time inside the verifier's dispatches (pack, copy in,
+        # kernel C, copy out), summed over the leaders, and every lane's
+        # payload and count, held against hashlib below
+        v_obj, dispatch_s, dispatched = state.challenge_verifier, [0.0], []
+        device_bits = v_obj._device_bits
+
+        def timed_bits(payloads):
+            t = time.perf_counter()
+            try:
+                bits = device_bits(payloads)
+                dispatched.append((list(payloads), list(bits)))
+                return bits
+            finally:
+                dispatch_s[0] += time.perf_counter() - t
+
+        v_obj._device_bits = timed_bits
+        challenge_stats.get_stats().reset()
+        pow_verify.KERNEL.launches = 0
+        workers = [threading.Thread(target=worker, args=(i,)) for i in range(threads)]
+        sync(dev)
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = pow_verify.KERNEL.launches
+        v_obj._device_bits = device_bits
+        v = v_obj.counters()
+        stats = challenge_stats.get_stats().snapshot()
+        fs = state.failed_challenge_states.counters()
+        banned = sorted(ip for ip, d, _ in state.banner.bans if d == Decision.IPTABLES_BLOCK)
+        ban_log = state.banner._ban_log.getvalue()
+        breakdown = host_breakdown(state, cfg, now, dispatch_s[0], wall)
+    check(not errors, f"no request raised: {errors[:3]}")
+
+    # ---- checks ----
+    mismatches, wire_ok, oracle_checked = [], 0, 0
+    bits = cfg.sha_inv_expected_zero_bits
+    for t in range(threads):
+        for (req, cookie, exp), got in zip(reqs[t], outcomes[t]):
+            status, header, sha_name, ok_wire = exp
+            wire_ok += ok_wire
+            if ok_wire:
+                raw = base64.standard_b64decode(cookie)
+                accept = count_zero_bits_from_left(hashlib.sha256(raw[:52]).digest()) >= bits
+                check(accept == (sha_name == "ShaChallengePassed"), "the stream's oracle")
+                oracle_checked += 1
+            if got != (status, header, sha_name):
+                mismatches.append((req.client_ip, got, exp))
+    verifications = stats["verifications"]
+    on_card = verifications.get("accept/device", 0) + verifications.get("reject/device", 0)
+    lanes = [(p, b) for payloads, bits in dispatched for p, b in zip(payloads, bits)]
+    count_mismatches = sum(b != cpu_zero_bits(p) for p, b in lanes)
+    emit({
+        "phase": "challenge_path",
+        "config": "deploy/banjax-config.yaml with hmac_secret set and "
+                  f"sitewide_sha_inv_list {{{SHA_HOST}: block}}; clock pinned",
+        "requests": n_requests, "threads": threads, "challengers": challengers,
+        "stream_setup_s": stream_s, "chain_setup_s": setup_s,
+        "wall_s": wall, "requests_per_s": n_requests / wall,
+        "log_chunk_lines": log_lines, "log_chunk_s": log_s, "log_chunk_launches": log_launches,
+        "verifications_on_card": on_card, "wire_ok_verifications": wire_ok,
+        "verifications": verifications, "dispatches": v["dispatches"],
+        "mean_lanes_per_dispatch": v["lanes_verified"] / max(1, v["dispatches"]),
+        "batch_size_counts": stats["batch_size_counts"],
+        "launches": launches, "faults": v["faults"],
+        "lanes_checked_by_hashlib": len(lanes), "count_mismatches": count_mismatches,
+        "failure_state": fs,
+        "bans": len(banned), "ban_log_lines": ban_log.count("\n"),
+        "response_mismatches": len(mismatches), "first_mismatches": mismatches[:3],
+        "breakdown": breakdown,
+    })
+    check(not mismatches, "every response is the expected one (accept/reject by hashlib)")
+    check(oracle_checked == wire_ok > 0, "every wire-valid cookie was checked by hashlib")
+    check(v["faults"] == 0, "no fault")
+    check(len(lanes) == v["lanes_verified"] == on_card and count_mismatches == 0,
+          "every lane the storm dispatched has hashlib's bit count")
+    check(dev.type != "cuda" or (on_card == wire_ok and launches > 0),
+          "every verification that passed the wire checks ran on the card")
+    check(banned == sorted(offender_ips), "the offenders, and only they, are banned")
+    check(ban_log.count("\n") == len(offender_ips) + log_ips, "one ban-log line per ban")
+    check(fs["entries"] <= cfg.challenge_failure_state_max and fs["evictions_total"] > 0
+          and fs["spill_writes"] > 0 and fs["spill_refills"] > 0,
+          "the failure state held its bound and evicted, spilled and refilled")
+
+    # ---- cross-check: a prefix on the card and on the CPU ----
+    prefix = [r for block in head for r in block][:cross_check]
+    runs = []
+    t0 = time.perf_counter()
+    for d in (dev, torch.device("cpu")):
+        with pinned(float(now), seed=SEED):
+            st = new_chain(cfg, d)
+            out = []
+            for ip, host, c, _ in prefix:
+                resp, result = decision_for_nginx(st, RequestInfo(
+                    client_ip=ip, requested_host=host, requested_path="/",
+                    client_user_agent="Mozilla/5.0",
+                    cookies={} if c is None else {"deflect_challenge3": c}))
+                out.append((resp.status, resp.headers, [vars(x) for x in resp.cookies],
+                            resp.content_type, resp.body, result.to_json()))
+            dyn = st.dynamic_lists.format_ip_entries()
+            runs.append((out, st.banner._ban_log.getvalue(), st.banner._ban_log_temp.getvalue(),
+                         st.failed_challenge_states.format_states(),
+                         sorted((ip, int(e.decision), e.expires, e.domain) for ip, e in dyn.items()),
+                         st.challenge_verifier.lanes_verified))
+    same = {
+        "responses": runs[0][0] == runs[1][0],
+        "ban_log": runs[0][1:3] == runs[1][1:3],
+        "failure_states": runs[0][3] == runs[1][3],
+        "dynamic_lists": runs[0][4] == runs[1][4],
+    }
+    emit({"phase": "challenge_cross_check", "requests": len(prefix),
+          "ban_log_lines": runs[0][1].count("\n"), "verified_lanes": runs[0][5],
+          "identical": same, "seconds": time.perf_counter() - t0})
+    check(all(same.values()), "the card's chain equals the CPU chain on the prefix")
+    check(runs[0][1].count("\n") > 0 and runs[0][5] > 0,
+          "the cross-checked prefix verified cookies and banned")
+
+    main_row = pow_rows[str(min(pow_lanes))]
+    return [{
+        "name": "pow_verify", "route": "cuda",
+        "source": "banjax_tpu_torch/csrc/pow_verify.cu",
+        "replaces": REPLACES["pow_verify"], "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in pow_rows.values()),
+        # the storm's dispatches are mostly of one lane (batch_size_counts)
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": None, "shapes": pow_rows,
+    }]
+
+
 def main() -> int:
     import torch
 
@@ -356,7 +886,7 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    kernels = run(dev, **FULL)
+    kernels = run(dev, **FULL) + run_challenge(dev, **CHALLENGE)
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {

@@ -52,6 +52,7 @@ def main() -> int:
     from banjax_tpu_torch import workload
     from banjax_tpu_torch.config import config_from_yaml_text
     from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
+    from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
     from banjax_tpu_torch.effectors.banner import Banner
     from banjax_tpu_torch.matcher.encode import encode_for_match
     from banjax_tpu_torch.matcher.kernels import _build, fused_match_window, nfa_match
@@ -69,7 +70,8 @@ def main() -> int:
     now = time.time()
     lines = workload.access_log((args.chunks + 1) * BATCH, patterns, now, seed=7,
                                 n_ips=50_000, n_offenders=40, offender_hits=40)
-    matcher = TorchMatcher(cfg, Banner(io.StringIO(), io.StringIO()),
+    matcher = TorchMatcher(cfg, Banner(DynamicDecisionLists(start_sweeper=False),
+                                       io.StringIO(), io.StringIO()),
                            StaticDecisionLists(cfg), device=dev)
     matcher.consume_lines(lines[:BATCH], now_unix=now)  # warm-up
     measured = lines[BATCH:]

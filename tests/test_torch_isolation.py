@@ -51,12 +51,16 @@ def _imports(path: Path):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = sorted((ROOT / "banjax_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    scanned = {p.relative_to(ROOT / "banjax_tpu_torch").parts[0] for p in files[:-1]}
+    assert scanned >= {"challenge", "crypto", "decisions", "effectors", "httpapi",
+                       "ingest", "matcher", "obs", "utils"}
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p) if _forbidden(m)]
     assert not bad, bad
 
 
 def test_matcher_without_a_device_raises_when_no_gpu(monkeypatch):
     from banjax_tpu_torch.config import config_from_yaml_text
+    from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
     from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
     from banjax_tpu_torch.effectors.banner import Banner
     from banjax_tpu_torch.matcher.runner import TorchMatcher
@@ -68,7 +72,8 @@ def test_matcher_without_a_device_raises_when_no_gpu(monkeypatch):
         " decision: challenge}\n"
     )
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        TorchMatcher(cfg, Banner(None, None), StaticDecisionLists(cfg))
+        TorchMatcher(cfg, Banner(DynamicDecisionLists(start_sweeper=False), None, None),
+                     StaticDecisionLists(cfg))
 
 
 def test_kernel_wrappers_refuse_instead_of_falling_back():

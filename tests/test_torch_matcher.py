@@ -19,7 +19,7 @@ import torch
 import yaml
 
 from banjax_tpu.config.schema import config_from_yaml_text as jax_config
-from banjax_tpu.decisions.dynamic_lists import DynamicDecisionLists
+from banjax_tpu.decisions.dynamic_lists import DynamicDecisionLists as JaxDynamicLists
 from banjax_tpu.decisions.rate_limit import RegexRateLimitStates
 from banjax_tpu.decisions.static_lists import StaticDecisionLists as JaxLists
 from banjax_tpu.effectors.banner import Banner as JaxBanner
@@ -28,6 +28,7 @@ from banjax_tpu.matcher.runner import TpuMatcher
 from banjax_tpu_torch import convert, workload
 from banjax_tpu_torch.cli import build_matcher
 from banjax_tpu_torch.config import config_from_yaml_text
+from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
 from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
 from banjax_tpu_torch.effectors.banner import Banner
 from tests.differential.test_tpu_matcher import CONFIG_YAML, result_key
@@ -70,7 +71,7 @@ def _yaml(batch_lines=128, capacity=0):
 
 class _RecordingBanner(JaxBanner):
     def __init__(self, log):
-        super().__init__(DynamicDecisionLists(start_sweeper=False), log, io.StringIO(), None)
+        super().__init__(JaxDynamicLists(start_sweeper=False), log, io.StringIO(), None)
         self.bans = []
 
     def ban_or_challenge_ip(self, config, ip, decision, domain):
@@ -89,7 +90,7 @@ def _jax(cls, yaml_text):
 def _port(yaml_text):
     cfg = config_from_yaml_text(yaml_text)
     log = io.StringIO()
-    banner = Banner(log, io.StringIO())
+    banner = Banner(DynamicDecisionLists(start_sweeper=False), log, io.StringIO())
     return build_matcher(cfg, banner, StaticDecisionLists(cfg), device="cpu"), banner, log
 
 
