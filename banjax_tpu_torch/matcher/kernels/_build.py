@@ -116,6 +116,16 @@ def build_all(libs: List[CudaLibrary]) -> float:
     return time.perf_counter() - t0
 
 
+def raw_stream(device) -> int:
+    """The handle of the current CUDA stream of `device` (a torch.device
+    with an index), as a launcher takes it: what
+    `torch.cuda.current_stream(device).cuda_stream` gives, without building
+    a Stream object, which costs a few microseconds a launch."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 P = ctypes.c_void_p
 I = ctypes.c_int
 LL = ctypes.c_longlong

@@ -5,9 +5,13 @@ fused_match_window.py` `_scan_kernel` (via `_scan_call` / `window_scan`):
 the fixed-window recurrence `windows._window_step` of the JAX package
 over the key-sorted events of one apply. The CUDA source is
 `banjax_tpu_torch/csrc/window_scan.cu`; its note says what bounds it (the
-latency of the longest carry segment) and how the design walks the
-segments in parallel and keeps pad events off that path. Both the
-single-program commit and the classic `DeviceWindows.apply_bitmap` run it.
+latency of the longest carry segment) and how the design stages a tile
+of events in shared memory, partitions the non-pad events to the front,
+walks the segments in parallel from shared memory and hands the open
+segment's carry from tile to tile. The wrapper launches the kernel and
+nothing else: the flags go in as the bytes of torch.bool and `exceeded`
+comes back as a torch.bool. Both the single-program commit and the
+classic `DeviceWindows.apply_bitmap` run it.
 
 `window_scan_plain` is its plain PyTorch version, with the same
 structure: the pad events never change the carry, so the non-pad events
@@ -30,11 +34,12 @@ import torch
 
 from banjax_tpu_torch.device import packbits_rows
 from banjax_tpu_torch.matcher import windows as W
-from banjax_tpu_torch.matcher.kernels._build import CudaLibrary, I, P
+from banjax_tpu_torch.matcher.kernels._build import CudaLibrary, I, P, raw_stream
 
 KERNEL = CudaLibrary(
-    "window_scan", "window_scan.cu", {"window_scan_launch": [P] * 17 + [I, P]},
+    "window_scan", "window_scan.cu", {"window_scan_launch": [P] * 16 + [I, I, P]},
 )
+_FLAGS = (0, 4, 10)  # b, gv and pad: torch.bool for the kernel
 
 _NS_PER_S = 1_000_000_000
 
@@ -125,28 +130,33 @@ def window_scan_plain(xs: ScanIn) -> ScanOut:
 
 def window_scan(xs: ScanIn) -> ScanOut:
     """The recurrence over one key-sorted event list: kernel B for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors (flags bool, the rest int32, all contiguous [E]), the plain
+    version for CPU tensors."""
     dev = xs[0].device
     if dev.type == "cpu":
         return window_scan_plain(xs)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     E = int(xs[0].shape[0])
-    for x in xs:
-        if x.shape != (E,) or x.device != dev:
-            raise ValueError("window_scan takes 11 [E] tensors on one device")
-    ins = [x.to(torch.int32).contiguous() for x in xs]
-    outs = [torch.empty(E, dtype=torch.int32, device=dev) for _ in range(5)]
-    scratch = torch.empty(2 * E, dtype=torch.int32, device=dev)
+    if len(xs) != 11:
+        raise ValueError("window_scan takes 11 [E] tensors")
+    for i, x in enumerate(xs):
+        if x.shape != (E,) or x.device != dev or not x.is_contiguous():
+            raise ValueError("window_scan takes 11 contiguous [E] tensors on one device")
+        want = torch.bool if i in _FLAGS else torch.int32
+        if x.dtype != want:
+            raise TypeError(f"window_scan input {i} is {x.dtype}, not {want}")
+    out = torch.empty((4, E), dtype=torch.int32, device=dev)
+    ex = torch.empty(E, dtype=torch.bool, device=dev)
     if E:
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        o = out.data_ptr()
         KERNEL.launches += 1
         KERNEL.call(
-            "window_scan_launch", *[t.data_ptr() for t in ins],
-            *[t.data_ptr() for t in outs], scratch.data_ptr(), E, stream,
+            "window_scan_launch", *[t.data_ptr() for t in xs],
+            o, o + 4 * E, o + 8 * E, o + 12 * E, ex.data_ptr(), E, dev.index, raw_stream(dev),
         )
-    h, s, n, mt, ex = outs
-    return h, s, n, mt, ex != 0
+    h, s, n, mt = out.unbind(0)
+    return h, s, n, mt, ex
 
 
 def selftest_stimulus(E: int = 64, seed: int = 7):

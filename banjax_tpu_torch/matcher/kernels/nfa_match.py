@@ -3,39 +3,47 @@
 Replaces the Pallas TPU kernel `banjax_tpu/matcher/kernels/nfa_match.py`
 `_kernel` (built by `_build_raw_call`, wrapped by `device_matcher` and
 `match_batch_pallas`). The CUDA source is `banjax_tpu_torch/csrc/
-nfa_match.cu`; its note says what bounds it (integer operations, about 15
-per line byte and NFA word) and how the design keeps every operand in
-registers or shared memory.
+nfa_match.cu`; its note says what bounds it (the longest line's chain of
+dependent byte steps, or the integer pipe for a large batch) and how the
+design hides the step latency: each thread carries R lines of one
+length-sorted group, teams share one staged table slab and exchange all R
+lines' carries in one shuffle and one barrier per byte.
 
 `prepare` is the port's own table layout: the packed uint32 rows of a
 CompiledRules as int32 storage, unpadded ([C, W] table, [6, W] masks,
-W = n_shards * words_per_shard; a block of the kernel owns one shard).
+W = n_shards * words_per_shard; a team of the kernel owns one shard).
 `accept_words` returns the raw accept words [B, W] in the layout of
 `nfa_jax.nfa_scan`, so it compares directly with that function, and
 `match_bits` adds the extraction epilogue of the TPU `device_matcher`.
 
 On a CPU tensor the wrapper runs the plain version (`nfa.nfa_scan_words`);
-on a CUDA tensor it launches the kernel or raises.
+on a CUDA tensor it launches the kernel or raises. The launch sorts the
+line lengths on the device first (as `match_batch_pallas` sorts them on
+the host), into scratch the wrapper allocates.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 import numpy as np
 import torch
 
 from banjax_tpu_torch.device import to_i32_storage, to_words
 from banjax_tpu_torch.matcher import nfa
-from banjax_tpu_torch.matcher.kernels._build import LL, CudaLibrary, I, P
+from banjax_tpu_torch.matcher.kernels._build import LL, CudaLibrary, I, P, raw_stream
 from banjax_tpu_torch.matcher.rulec import CompiledRules
 
 KERNEL = CudaLibrary(
     "nfa_match", "nfa_match.cu",
-    {"nfa_scan_launch": [P, LL, P, P, P, P, I, I, I, I, I, I, P]},
+    {"nfa_scan_launch": [P, LL, P, P, P, P, P, I, I, I, I, I, I, I, I, P]},
 )
 
 _MAX_WORDS_PER_SHARD = 1024  # one thread per word of a shard
+LINES_PER_THREAD = (1, 2, 4, 8)  # the kernel's instantiations of R
+_RESIDENT_THREADS_PER_SM = 2048
+_SMS: Dict[int, int] = {}  # multiprocessors per CUDA device index
 
 
 @dataclasses.dataclass
@@ -56,6 +64,7 @@ class TorchNfaRules:
     branch_rule: torch.Tensor   # [n_branches] int64
     always_match: torch.Tensor  # [n_rules] bool
     empty_only: torch.Tensor    # [n_rules] bool
+    lines_by_batch: Dict[int, int] = dataclasses.field(default_factory=dict)  # B -> R
 
     @property
     def n_words(self) -> int:
@@ -73,6 +82,12 @@ def prepare(compiled: CompiledRules, device) -> TorchNfaRules:
         compiled.shift_in, compiled.inject_always, compiled.inject_start,
         compiled.selfloop, compiled.accept_any, compiled.accept_end,
     ]).astype(np.uint32)
+    # the kernel takes no carry into a shard's first word (nor any word
+    # when carry_free); the plain scan does, so both agree only where
+    # shift_in drops it, as rulec packs it
+    no_carry = masks[0] if compiled.carry_free else masks[0, :: compiled.words_per_shard]
+    if (no_carry & 1).any():
+        raise ValueError("shift_in takes a carry into a word the kernel gives none")
     return TorchNfaRules(
         n_rules=compiled.n_rules,
         n_shards=compiled.n_shards,
@@ -91,16 +106,38 @@ def prepare(compiled: CompiledRules, device) -> TorchNfaRules:
     )
 
 
+def lines_per_thread(prep: TorchNfaRules, B: int, device=None) -> int:
+    """R, the lines each thread of kernel A carries for a batch of B lines:
+    the most that still puts two waves of the card's resident threads in
+    flight. A thread per (line group, word): more lines a thread hide more
+    of each byte step's latency, fewer threads fill more of the card.
+    Picked on an H100 from chip_smoke.py's sweep over R (PERF.md): stage 1
+    (4,096 lines, 38 words) takes 1, stage 2 (512 lines, 6 x 377 words) 2,
+    the single-stage fallback (4,096 lines) 8."""
+    dev = torch.device(device if device is not None else prep.table.device)
+    # (a CPU rehearsal reports R for an H100's 132 multiprocessors)
+    sms = _SMS.get(dev.index or 0) if dev.type == "cuda" else 132
+    if sms is None:
+        sms = _SMS[dev.index or 0] = torch.cuda.get_device_properties(dev).multi_processor_count
+    wps = prep.wps if prep.carry_free else -(-prep.wps // 32) * 32
+    threads_per_line = prep.n_shards * wps
+    for R in (8, 4, 2):
+        if -(-B // R) * threads_per_line >= 2 * sms * _RESIDENT_THREADS_PER_SM:
+            return R
+    return 1
+
+
 def accept_words_plain(prep: TorchNfaRules, cls: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of the kernel, on the tensors' device."""
     return nfa.nfa_scan_words(prep.table_words, prep.mask_words, cls, lens)
 
 
-def accept_words(prep: TorchNfaRules, cls: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+def accept_words(prep: TorchNfaRules, cls: torch.Tensor, lens: torch.Tensor,
+                 lines: int = 0) -> torch.Tensor:
     """Raw accept words [B, W] (int32 storage of uint32) for class ids
     `cls` [B, L] (int32; rows may be strided, elements contiguous) and
     line lengths `lens` [B] (int32): kernel A on CUDA tensors, the plain
-    version on CPU tensors."""
+    version on CPU tensors. `lines` overrides R (one of LINES_PER_THREAD)."""
     B, L = cls.shape
     W = prep.n_words
     if cls.dtype != torch.int32 or lens.dtype != torch.int32:
@@ -113,16 +150,23 @@ def accept_words(prep: TorchNfaRules, cls: torch.Tensor, lens: torch.Tensor) -> 
         return accept_words_plain(prep, cls, lens)
     if cls.device.type != "cuda":
         raise ValueError(f"unsupported device {cls.device}")
+    R = lines or prep.lines_by_batch.get(B)
+    if R is None:
+        R = prep.lines_by_batch[B] = lines_per_thread(prep, B, cls.device)
+    if R not in LINES_PER_THREAD:
+        raise ValueError(f"lines per thread {R} is not one of {LINES_PER_THREAD}")
     out = torch.empty((B, W), dtype=torch.int32, device=cls.device)
     if B == 0:
         return out
-    stream = torch.cuda.current_stream(cls.device).cuda_stream
+    # scratch for the kernel's length sort (groups of one line go without)
+    order = torch.empty(B, dtype=torch.int32, device=cls.device) if R > 1 else None
     KERNEL.launches += 1
     KERNEL.call(
         "nfa_scan_launch", cls.data_ptr(), cls.stride(0), lens.data_ptr(),
-        prep.table.data_ptr(), prep.masks.data_ptr(), out.data_ptr(),
-        B, L, prep.n_classes, W, prep.n_shards, 0 if prep.carry_free else 1,
-        stream,
+        None if order is None else order.data_ptr(),
+        prep.table.data_ptr(), prep.masks.data_ptr(), out.data_ptr(), B, L,
+        prep.n_classes, W, prep.n_shards, 0 if prep.carry_free else 1, R,
+        cls.device.index, raw_stream(cls.device),
     )
     return out
 

@@ -27,6 +27,13 @@ Banner. A prefix of that stream also runs through a chain on the CPU
 (plain versions); responses, result records, ban logs and state must be
 identical.
 
+The kernel phases time each shape three ways: `ms` (CUDA events around
+20 back-to-back wrapper calls; the host's enqueue bounds it when slower
+than the card, and `host_enqueue_us` says so), `device_ms` (the same 20
+calls as one CUDA graph) and the plain version's `plain_ms`; kernel A's
+rows add the sweep over lines per thread and `alu_bound_ms`, kernel B's
+the shape's segments and longest segment.
+
 Each phase prints one JSON line; then the kernels line, the card's name
 and power limit, and as the last line {"ok": true, "device": ...}. Any
 failed check raises, and the script exits non-zero with no result. It
@@ -96,6 +103,9 @@ NFA_OPS = 10
 NFA_CARRY_OPS = 3
 # per event of kernel B: the step's selects, borrow arithmetic and compares
 SCAN_OPS = 24
+# kernel B's bytes an event: 8 int32 columns and 3 flag bytes in, 4 int32
+# columns and the exceeded byte out
+SCAN_BYTES = 8 * 4 + 3 + 4 * 4 + 1
 # per lane of kernel C, counted from csrc/pow_verify.cu with every
 # three-input bitwise function as one LOP3: 64 rounds x 17 (Sigma1 and
 # Sigma0 at 3 funnel shifts + one three-way xor each, Ch and Maj one each,
@@ -157,17 +167,139 @@ def time_ms(fn, device, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, device, reps: int = 20):
+    """Mean device time of fn() with the host out of the way: reps calls
+    captured in one CUDA graph, its replay timed by CUDA events (None for a
+    CPU rehearsal)."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture (first launches configure)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    sync(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    sync(device)
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
+
+
+def host_enqueue_us(fn, device, n: int = 100) -> float:
+    """Mean host time to enqueue fn() (perf_counter around n calls with no
+    sync): when it exceeds `ms`, CUDA events time the host, not the card.
+    n calls of up to two launches each stay well inside the card's launch
+    queue (about 1,024 entries), so no enqueue waits for the card."""
+    n = n if device.type == "cuda" else 2  # a CPU rehearsal runs the plain versions
+    fn()
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    sync(device)
+    return 1e6 * dt / n
+
+
+def line_bytes(cls, lens) -> int:
+    """The bytes kernel A steps: each line's first len class ids."""
+    return int(lens.clamp(0, cls.shape[1]).sum())
+
+
+def nfa_bytes(prep, cls, lens) -> int:
+    """Kernel A's bytes: the class ids of each line's first len bytes,
+    lengths, table and masks in, words out."""
+    B, W = cls.shape[0], prep.n_words
+    return 4 * (line_bytes(cls, lens) + B + prep.n_classes * W + 6 * W + B * W)
+
+
+def nfa_alu_bound_ms(prep, cls, lens, alu_per_line_byte) -> float:
+    """Bytes over the memory rate, or kernel A's ALU-pipe instructions per
+    (line byte, word), as counted in the SASS of the instantiation that
+    runs, over INT32_OPS_PER_S."""
+    ops = line_bytes(cls, lens) * prep.n_words * alu_per_line_byte
+    return 1e3 * max(nfa_bytes(prep, cls, lens) / PEAK_BYTES_PER_S, ops / INT32_OPS_PER_S)
+
+
 def nfa_bound_ms(prep, cls, lens) -> tuple:
-    B, L = cls.shape
     W = prep.n_words
-    nbytes = 4 * (B * L + B + prep.n_classes * W + 6 * W + B * W)
-    ops = int(lens.sum()) * W * (NFA_OPS + (0 if prep.carry_free else NFA_CARRY_OPS))
+    nbytes = nfa_bytes(prep, cls, lens)
+    ops = line_bytes(cls, lens) * W * (NFA_OPS + (0 if prep.carry_free else NFA_CARRY_OPS))
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def skewed_batch(cls, C: int, n: int, seed: int):
+    """n lines of skewed length: encoded log lines (one in ten replaced by
+    random class ids), lengths mostly short, with empty and full-length
+    lines (which read the pad class past a log line's end)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    L = cls.shape[1]
+    rows = np.resize(np.arange(cls.shape[0]), n)
+    out = np.array(cls[rows], dtype=np.int32)
+    noisy = rng.random(n) < 0.1
+    out[noisy] = rng.integers(0, C, (int(noisy.sum()), L), dtype=np.int32)
+    ln = (L * rng.random(n) ** 3).astype(np.int32)
+    ln[rng.random(n) < 0.05] = 0
+    ln[rng.random(n) < 0.05] = L
+    ln[:2] = (0, L)
+    return out, ln
+
+
+def segments_of(b, pad) -> tuple:
+    """(segments, longest segment) of a scan input: runs of non-pad events
+    from the first one or a boundary to the next."""
+    import numpy as np
+
+    nb = np.asarray(b)[~np.asarray(pad)]
+    if nb.size == 0:
+        return 0, 0
+    starts = np.flatnonzero(nb)
+    if starts.size == 0 or starts[0] != 0:
+        starts = np.r_[0, starts]
+    ends = np.r_[starts[1:], nb.size]
+    return int(starts.size), int((ends - starts).max())
+
+
+def scan_shapes(seed: int) -> dict:
+    """Kernel B's shapes: the selftest stimulus, the main path's size, one
+    4,096-event carry segment (the serial worst case), E beyond one
+    shared-memory tile, and a single event."""
+    import numpy as np
+
+    from banjax_tpu_torch.matcher.kernels import fused_match_window as fmw
+
+    one = list(scan_stimulus(4096, seed))
+    one[0] = np.zeros(4096, dtype=bool)
+    one[0][0] = True
+    one[10] = np.zeros(4096, dtype=bool)
+    single = list(scan_stimulus(8, seed))
+    single = [x[:1].copy() for x in single]
+    single[0][0], single[10][0] = True, False
+    return {
+        "selftest": fmw.selftest_stimulus(64),
+        "events_4096": scan_stimulus(4096, seed),
+        "one_segment_4096": tuple(one),
+        "events_16384": scan_stimulus(16384, seed),
+        "events_1": tuple(single),
+    }
+
+
 def scan_bound_ms(E: int) -> tuple:
-    t_bytes = 4 * 16 * E / PEAK_BYTES_PER_S
+    t_bytes = SCAN_BYTES * E / PEAK_BYTES_PER_S
     t_ops = SCAN_OPS * E / PEAK_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -225,7 +357,7 @@ def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
     from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
     from banjax_tpu_torch.effectors.banner import Banner
     from banjax_tpu_torch.matcher import encode
-    from banjax_tpu_torch.matcher.kernels import _build, nfa_match, pow_verify
+    from banjax_tpu_torch.matcher.kernels import _build, nfa_match, pow_verify, sass_alu
     from banjax_tpu_torch.matcher.kernels import fused_match_window as fmw
     from banjax_tpu_torch.matcher.runner import TorchMatcher
 
@@ -279,11 +411,17 @@ def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
     lens2 = torch.zeros(K, dtype=torch.int32, device=dev)
     cls2[: rows.size] = cls[torch.from_numpy(rows).to(dev)]
     lens2[: rows.size] = lens[torch.from_numpy(rows).to(dev)]
+    sk_cls, sk_lens = skewed_batch(cls_np, pf.pre2.n_classes, 4095, SEED)
     nfa_shapes = {
         "stage1": (pf.pre1, cls, lens),
         "stage2": (pf.pre2, cls2, lens2),
         "single_stage": (matcher._nfa, cls, lens),
+        # stage 2's rules on 4,095 lines of skewed length (no group size divides it)
+        "skewed_4095": (pf.pre2, torch.from_numpy(sk_cls).to(dev), torch.from_numpy(sk_lens).to(dev)),
     }
+    # kernel A's byte-step loop in the SASS of each instantiation a shape runs
+    sass = sass_alu.sass_of(nfa_match.KERNEL.path) if dev.type == "cuda" else None
+    step_loops = {}
     shape_rows = {}
     for name, (prep, c, ln) in nfa_shapes.items():
         got = nfa_match.accept_words(prep, c, ln)
@@ -291,20 +429,36 @@ def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
         sync(dev)
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         check(err == 0, f"kernel A ({name}) is bit-identical to its plain version")
+        # every instantiation of R, held to the plain version and timed
+        by_r = {}
+        for R in nfa_match.LINES_PER_THREAD if dev.type == "cuda" else ():
+            check(torch.equal(nfa_match.accept_words(prep, c, ln, lines=R), want),
+                  f"kernel A ({name}, R={R}) is bit-identical to its plain version")
+            by_r[str(R)] = graph_ms(lambda: nfa_match.accept_words(prep, c, ln, lines=R), dev)
         bound, by = nfa_bound_ms(prep, c, ln)
+        R = nfa_match.lines_per_thread(prep, int(c.shape[0]), dev)
+        key = ("free" if prep.carry_free else "carry", R)
+        if sass is not None and key not in step_loops:
+            step_loops[key] = sass_alu.count(sass, not prep.carry_free, R)
+        alu = step_loops[key]["alu_per_line_byte"] if sass is not None else None
         shape_rows[name] = {
             "lines": int(c.shape[0]), "bytes": int(c.shape[1]), "words": prep.n_words,
             "shards": prep.n_shards, "classes": prep.n_classes,
-            "carry": not prep.carry_free, "max_abs_err": err,
+            "carry": not prep.carry_free, "line_bytes": line_bytes(c, ln), "max_abs_err": err,
+            "lines_per_thread": R, "alu_per_line_byte_word": alu,
             "ms": time_ms(lambda: nfa_match.accept_words(prep, c, ln), dev, 20),
+            "device_ms": graph_ms(lambda: nfa_match.accept_words(prep, c, ln), dev),
+            "device_ms_by_lines_per_thread": by_r,
+            "host_enqueue_us": host_enqueue_us(lambda: nfa_match.accept_words(prep, c, ln), dev),
             "plain_ms": time_ms(lambda: nfa_match.accept_words_plain(prep, c, ln), dev, 2),
             "bound_ms": bound, "bound_by": by,
+            "alu_bound_ms": None if alu is None else nfa_alu_bound_ms(prep, c, ln, alu),
         }
-    emit({"phase": "kernel_nfa_match", "tolerance": 0, "shapes": shape_rows})
+    emit({"phase": "kernel_nfa_match", "tolerance": 0, "shapes": shape_rows,
+          "step_loops": {f"{k}_R{R}": v for (k, R), v in step_loops.items()}})
 
     scan_rows = {}
-    for name, xs_np in (("selftest", fmw.selftest_stimulus(64)),
-                        ("events_4096", scan_stimulus(4096, SEED))):
+    for name, xs_np in scan_shapes(SEED).items():
         xs = [torch.from_numpy(x).to(dev) for x in xs_np]
         got = fmw.window_scan(xs)
         want = fmw.window_scan_plain(xs)
@@ -313,9 +467,12 @@ def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
         check(err == 0, f"kernel B ({name}) is bit-identical to its plain version")
         E = int(xs[0].shape[0])
         bound, by = scan_bound_ms(E)
+        n_seg, longest = segments_of(xs_np[0], xs_np[10])
         scan_rows[name] = {
-            "events": E, "max_abs_err": err,
+            "events": E, "segments": n_seg, "longest_segment": longest, "max_abs_err": err,
             "ms": time_ms(lambda: fmw.window_scan(xs), dev, 20),
+            "device_ms": graph_ms(lambda: fmw.window_scan(xs), dev),
+            "host_enqueue_us": host_enqueue_us(lambda: fmw.window_scan(xs), dev),
             "plain_ms": time_ms(lambda: fmw.window_scan_plain(xs), dev, 2),
             "bound_ms": bound, "bound_by": by,
         }
@@ -384,6 +541,7 @@ def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
             "max_abs_err": max(r["max_abs_err"] for r in shape_rows.values()),
             # one chunk of the main path: the stage-1 and stage-2 launches
             "ms": s1["ms"] + s2["ms"], "plain_ms": s1["plain_ms"] + s2["plain_ms"],
+            "device_ms": None if s1["device_ms"] is None else s1["device_ms"] + s2["device_ms"],
             "bound_ms": s1["bound_ms"] + s2["bound_ms"],
             "bound_by": s2["bound_by"], "library_ms": None,
             "shapes": shape_rows,
@@ -393,7 +551,8 @@ def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
             "source": "banjax_tpu_torch/csrc/window_scan.cu",
             "replaces": REPLACES["window_scan"], "launches": launches["window_scan"],
             "max_abs_err": max(r["max_abs_err"] for r in scan_rows.values()),
-            "ms": ev["ms"], "plain_ms": ev["plain_ms"], "bound_ms": ev["bound_ms"],
+            "ms": ev["ms"], "device_ms": ev["device_ms"], "plain_ms": ev["plain_ms"],
+            "bound_ms": ev["bound_ms"],
             "bound_by": ev["bound_by"], "library_ms": None, "shapes": scan_rows,
         },
     ]

@@ -71,6 +71,32 @@ def test_plain_scan_matches_lax_scan(E, seed):
         assert np.array_equal(w, g), name
 
 
+def _edge(kind, E, seed=5):
+    """One carry segment over every event (the serial worst case), every
+    event a pad, or a single event."""
+    xs = list(_stimulus(E, seed))
+    if kind == "one_segment":
+        xs[0] = np.zeros(E, dtype=bool)
+        xs[0][0] = True
+        xs[10] = np.zeros(E, dtype=bool)
+    elif kind == "all_pad":
+        xs[10] = np.ones(E, dtype=bool)
+    else:
+        xs = [x[:1].copy() for x in xs]
+        xs[10][0] = False
+    return tuple(xs)
+
+
+EDGES = [("one_segment", 300), ("all_pad", 64), ("single", 1)]
+
+
+@pytest.mark.parametrize("kind,E", EDGES)
+def test_plain_scan_matches_lax_scan_on_edge_shapes(kind, E):
+    xs = _edge(kind, E)
+    for name, w, g in zip(NAMES, _lax_scan(xs), _plain(xs)):
+        assert np.array_equal(w, g), name
+
+
 def test_plain_scan_matches_pallas_interpret_on_selftest_stimulus():
     xs = fmw.selftest_stimulus(64)
     init = (jnp.int32(0),) * 3
@@ -175,6 +201,20 @@ def test_kernel_b_matches_plain_on_the_card(cuda_device):
         got = fmw.window_scan([x.to(cuda_device) for x in xs])
         for name, w, g in zip(NAMES, want, got):
             assert torch.equal(w, g.cpu()), name
+
+
+@pytest.mark.cuda
+def test_kernel_b_matches_plain_on_the_card_on_edge_shapes(cuda_device):
+    """The serial worst case, all pads, a single event, and E beyond one
+    shared-memory tile (4,096 events): by one event and by four tiles."""
+    shapes = [_edge(k, E) for k, E in (("one_segment", 4096), ("all_pad", 64), ("single", 1))]
+    shapes += [_stimulus(4097, 7), _stimulus(16384 + 3, 6)]
+    for xs_np in shapes:
+        xs = [torch.from_numpy(x) for x in xs_np]
+        want = fmw.window_scan_plain(xs)
+        got = fmw.window_scan([x.to(cuda_device) for x in xs])
+        for name, w, g in zip(NAMES, want, got):
+            assert torch.equal(w, g.cpu()), (name, len(xs[0]))
 
 
 @pytest.fixture
