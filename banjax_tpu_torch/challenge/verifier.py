@@ -28,6 +28,10 @@ with deliberate differences:
 Requests funnel into a leader/follower micro-batch: whichever caller
 reaches the queue first dispatches everything pending, up to
 `batch_max`, in one launch and wakes the followers with their counts.
+On the card a dispatch goes through the verifier's `PowDispatcher`
+(pinned slots the kernel reads in place, a stream of its own, one C call
+a batch); only the leader uses it, and `verify_batch` takes the leader
+role before it does.
 Every verification records where its count ran (stats "device" when the
 verifier ran it, "cpu" for the hashlib path of a chain configured with
 `challenge_device_verify: false`).
@@ -77,18 +81,24 @@ class DeviceVerifier:
 
         self._lock = threading.Lock()
         self._room = threading.Condition(self._lock)  # the queue has room
+        self._idle = threading.Condition(self._lock)  # no leader
         self._queue: List[_Slot] = []
-        self._dispatching = False
+        self._dispatching = False  # a leader holds the role (and the dispatcher)
 
         self.dispatches = 0
         self.lanes_verified = 0
         self.faults = 0
 
-        # builds kernel C on first use (on the card) and raises on a
-        # failed build or any mismatch with hashlib
-        pow_verify.pow_selftest(self.device)
+        # on the card: builds kernel C on first use and raises when the
+        # pinned slots are not mapped into the card
+        self._dispatcher = (pow_verify.PowDispatcher(self.batch_max, self.device)
+                            if self.device.type == "cuda" else None)
+        # raises on a failed launch or any mismatch with hashlib
+        pow_verify.pow_selftest(self.device, self._dispatcher)
 
     def _device_bits(self, payloads: Sequence[bytes]) -> List[int]:
+        if self._dispatcher is not None:
+            return self._dispatcher.bits(payloads)
         msg = pow_verify.pack_payloads(payloads, self.device)
         return pow_verify.leading_zero_bits(msg).tolist()
 
@@ -115,6 +125,7 @@ class DeviceVerifier:
                     # seen empty and released under one lock, so no caller
                     # queues behind a leader that has left
                     self._dispatching = False
+                    self._idle.notify()
                     return
                 self._room.notify_all()
             try:
@@ -148,10 +159,19 @@ class DeviceVerifier:
         return slot.bits
 
     def verify_batch(self, payloads: Sequence[bytes]) -> List[int]:
-        """Bulk path: batch_max-sized launches; a fault raises."""
+        """Bulk path: batch_max-sized launches as the leader (after the
+        current one leaves); what queued meanwhile is dispatched before the
+        role is given up. A fault raises."""
+        with self._lock:
+            while self._dispatching:
+                self._idle.wait()
+            self._dispatching = True
         out: List[int] = []
-        for i in range(0, len(payloads), self.batch_max):
-            out.extend(self._dispatch(list(payloads[i : i + self.batch_max])))
+        try:
+            for i in range(0, len(payloads), self.batch_max):
+                out.extend(self._dispatch(list(payloads[i : i + self.batch_max])))
+        finally:
+            self._drain_as_leader()
         return out
 
     def counters(self) -> dict:

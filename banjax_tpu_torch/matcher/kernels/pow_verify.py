@@ -6,29 +6,39 @@ challenge accepts a cookie when `sha256(hmac[20] || solution[32])` starts
 with at least `sha_inv_expected_zero_bits` zero bits; the 52-byte message
 pads to one SHA-256 block, so a batch of B candidates is B independent
 compressions. The CUDA source is `banjax_tpu_torch/csrc/pow_verify.cu`;
-its note says what bounds it (integer operations, about 1,670 a lane) and
-how the design reads the packed bytes and keeps the whole compression in
-registers.
+its note says what bounds a dispatch and what bounds the body.
 
-`leading_zero_bits` takes the packed `[B, 52]` uint8 messages
-(`pack_payloads`) and returns `[B]` int32 counts: the kernel on a CUDA
-tensor, the plain version (`leading_zero_bits_plain`) on a CPU tensor.
-`pow_selftest` holds it against hashlib before a verifier takes traffic.
+Two ways onto the card:
+
+* `PowDispatcher`, the verifier's: pinned payload slots and counts that
+  the card addresses directly, a stream of its own, and one C call a
+  batch that launches the kernel and waits for that stream alone. Nothing
+  is allocated or copied by PyTorch per dispatch.
+* `leading_zero_bits`, for batches already on the card: packed `[B, 52]`
+  uint8 messages (`pack_payloads`) in, `[B]` int32 counts out, launched
+  on the current stream; on a CPU tensor it runs the plain version
+  (`leading_zero_bits_plain`).
+
+`pow_selftest` holds both against hashlib before a verifier takes traffic.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from banjax_tpu_torch.crypto.challenge import count_zero_bits_from_left
-from banjax_tpu_torch.device import U32
-from banjax_tpu_torch.matcher.kernels._build import CudaLibrary, I, P
+from banjax_tpu_torch.device import U32, DeviceLike, resolve_device
+from banjax_tpu_torch.matcher.kernels._build import CudaLibrary, I, P, raw_stream
 
-KERNEL = CudaLibrary("pow_verify", "pow_verify.cu", {"pow_verify_launch": [P, P, I, P]})
+KERNEL = CudaLibrary("pow_verify", "pow_verify.cu", {
+    "pow_verify_launch": [P, P, I, I, P],
+    "pow_verify_dispatch": [P, P, I, I, P],
+    "pow_verify_check_mapped": [P, I],
+})
 
 # 52-byte message = hmac[20] || solution[32]; one padded SHA-256 block:
 # 13 data words, the 0x80 terminator word, a zero word, the bit length
@@ -50,13 +60,19 @@ _K = (
 )
 
 
-def pack_payloads(payloads: Sequence[bytes], device) -> torch.Tensor:
-    """52-byte hmac||solution payloads -> [B, 52] uint8 on `device`."""
+def check_payloads(payloads: Sequence[bytes]) -> None:
+    """Raise ValueError (the JAX `pack_pow_messages` text) on a payload
+    that is not 52 bytes."""
     for j, payload in enumerate(payloads):
         if len(payload) != POW_MESSAGE_BYTES:
             raise ValueError(
                 f"payload {j}: want {POW_MESSAGE_BYTES} bytes, got {len(payload)}"
             )
+
+
+def pack_payloads(payloads: Sequence[bytes], device) -> torch.Tensor:
+    """52-byte hmac||solution payloads -> [B, 52] uint8 on `device`."""
+    check_payloads(payloads)
     flat = np.frombuffer(b"".join(payloads), dtype=np.uint8)
     return torch.from_numpy(flat.reshape(len(payloads), POW_MESSAGE_BYTES).copy()).to(device)
 
@@ -132,24 +148,98 @@ def leading_zero_bits(msg: torch.Tensor) -> torch.Tensor:
     out = torch.empty(B, dtype=torch.int32, device=msg.device)
     if B == 0:
         return out
-    stream = torch.cuda.current_stream(msg.device).cuda_stream
     KERNEL.launches += 1
-    KERNEL.call("pow_verify_launch", msg.data_ptr(), out.data_ptr(), B, stream)
+    KERNEL.call("pow_verify_launch", msg.data_ptr(), out.data_ptr(), B,
+                msg.device.index, raw_stream(msg.device))
     return out
 
 
-def pow_selftest(device) -> None:
-    """Hold `leading_zero_bits` on `device` against hashlib on the JAX
-    `pow_selftest` stimulus (24 random payloads, all zeros, 51 zeros then
-    0x01); raises RuntimeError on any mismatch."""
+# PyTorch maps a priority past the card's range to its highest
+_HIGHEST_PRIORITY = -(1 << 16)
+
+
+class PowDispatcher:
+    """Kernel C's zero-copy dispatch for one card (a verifier owns one).
+
+    Holds `batch_max` pinned payload slots ([batch_max, 52] uint8) and
+    counts ([batch_max] int32), which the card reads and writes at the
+    same pointers (checked when it is built), and a high-priority stream
+    of its own. `bits` writes the batch into the slots, makes one C call
+    that launches the kernel and waits for this stream alone (ctypes lets
+    go of the interpreter lock meanwhile), and reads the counts: no
+    PyTorch op, allocation or pageable copy a dispatch. Not thread-safe:
+    one caller at a time (the verifier's leader)."""
+
+    def __init__(self, batch_max: int, device: DeviceLike) -> None:
+        dev = resolve_device(device)
+        if dev.type != "cuda":
+            raise ValueError(f"PowDispatcher runs kernel C on a CUDA device, not {dev}")
+        self.device = dev
+        self.batch_max = int(batch_max)
+        self._msg = torch.empty((self.batch_max, POW_MESSAGE_BYTES), dtype=torch.uint8,
+                                pin_memory=True)
+        self._out = torch.empty(self.batch_max, dtype=torch.int32, pin_memory=True)
+        self._slots = memoryview(self._msg.numpy()).cast("B")
+        self._counts = self._out.numpy()
+        self._msg_ptr, self._out_ptr = self._msg.data_ptr(), self._out.data_ptr()
+        self._stream = torch.cuda.Stream(dev, priority=_HIGHEST_PRIORITY)
+        self._raw_stream = self._stream.cuda_stream
+        self._launch = KERNEL.lib().pow_verify_dispatch
+        for name, ptr in (("payload slots", self._msg_ptr), ("counts", self._out_ptr)):
+            err = KERNEL.lib().pow_verify_check_mapped(ptr, dev.index)
+            if err != 0:
+                raise RuntimeError(
+                    f"pinned {name} are not mapped into {dev} at the same pointer "
+                    f"(CUDA error {err})"
+                )
+
+    def fill(self, payloads: Sequence[bytes]) -> int:
+        """Write the batch into the payload slots; returns its size."""
+        B = len(payloads)
+        if B > self.batch_max:
+            raise ValueError(f"{B} payloads exceed the dispatcher's {self.batch_max} slots")
+        check_payloads(payloads)
+        self._slots[: B * POW_MESSAGE_BYTES] = b"".join(payloads)
+        return B
+
+    def launch(self, B: int) -> None:
+        """Kernel C over the first B slots into the counts; returns when
+        they are written (raises on a CUDA error)."""
+        KERNEL.launches += 1
+        err = self._launch(self._msg_ptr, self._out_ptr, B, self.device.index, self._raw_stream)
+        if err != 0:
+            raise RuntimeError(f"pow_verify.pow_verify_dispatch failed: CUDA error {err}")
+
+    def read(self, B: int) -> List[int]:
+        return self._counts[:B].tolist()
+
+    def bits(self, payloads: Sequence[bytes]) -> List[int]:
+        """Leading-zero-bit counts of up to batch_max 52-byte payloads."""
+        B = self.fill(payloads)
+        if B == 0:
+            return []
+        self.launch(B)
+        return self.read(B)
+
+
+def pow_selftest(device, dispatcher: Optional[PowDispatcher] = None) -> None:
+    """Hold `leading_zero_bits` on `device`, and `dispatcher` when given,
+    against hashlib on the JAX `pow_selftest` stimulus (24 random
+    payloads, all zeros, 51 zeros then 0x01); raises RuntimeError on any
+    mismatch."""
     rng = np.random.default_rng(0x51A)
     payloads = [rng.integers(0, 256, POW_MESSAGE_BYTES, np.uint8).tobytes() for _ in range(24)]
     payloads += [b"\x00" * POW_MESSAGE_BYTES, b"\x00" * 51 + b"\x01"]
-    got = leading_zero_bits(pack_payloads(payloads, device)).tolist()
-    for payload, bits in zip(payloads, got):
-        want = count_zero_bits_from_left(hashlib.sha256(payload).digest())
-        if bits != want:
-            raise RuntimeError(
-                f"pow_verify selftest mismatch on {torch.device(device)}: payload "
-                f"{payload[:8].hex()}… kernel={bits} hashlib={want}"
-            )
+    routes = [("kernel", leading_zero_bits(pack_payloads(payloads, device)).tolist())]
+    if dispatcher is not None:
+        n = dispatcher.batch_max
+        routes.append(("dispatcher", [b for i in range(0, len(payloads), n)
+                                      for b in dispatcher.bits(payloads[i : i + n])]))
+    for route, got in routes:
+        for payload, bits in zip(payloads, got):
+            want = count_zero_bits_from_left(hashlib.sha256(payload).digest())
+            if bits != want:
+                raise RuntimeError(
+                    f"pow_verify selftest mismatch on {torch.device(device)} ({route}): "
+                    f"payload {payload[:8].hex()}… kernel={bits} hashlib={want}"
+                )

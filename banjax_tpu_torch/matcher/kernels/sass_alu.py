@@ -1,5 +1,6 @@
-"""ALU-pipe instructions per (line byte, NFA word) in kernel A's byte-step
-loop, counted from the SASS of the built library.
+"""ALU-pipe instructions counted from the SASS of a built library: per
+(line byte, NFA word) in kernel A's byte-step loop (`count`), and per lane
+of kernel C (`count_pow`).
 
 Runs `cuobjdump -sass` (beside `nvcc`) on the built nfa_match library,
 finds the instantiation `nfa_carry_kernel<R, table in shared memory>` or
@@ -12,6 +13,13 @@ class-id extracts, PRMT); a carry-free loop one byte per R table loads
 (LDS). `chip_smoke.py` counts the instantiation each of its shapes
 runs and divides the count by the card's INT32 rate for kernel A's
 `alu_bound_ms`.
+
+Kernel C (`pow_verify_kernel`) is straight-line code, one lane a thread:
+its count is every ALU instruction of the kernel but `tail_bits`, which
+runs only when a digest's first word is zero: ptxas places it past the
+kernel's last EXIT as a subroutine reached by CALL, and a forward branch
+skips the call site. `chip_smoke.py` multiplies the count by the lanes
+for kernel C's `alu_bound_ms`.
 
 ALU pipe here: LOP3, LOP, SHF, SHL, SHR, PRMT, ISETP, SEL, LEA, IADD3,
 IMNMX, VIMNMX, FLO, POPC, BMSK, PLOP3 (IMAD and its moves issue on the FMA
@@ -96,3 +104,31 @@ def count(text: str, carry: bool, R: int) -> dict:
     if row is None:
         raise RuntimeError(f"no byte-step loop in nfa_{kind}_kernel<{R}, true>")
     return row
+
+
+def count_pow(text: str) -> dict:
+    """Kernel C's instructions a lane in SASS `text`: the opcodes of
+    pow_verify_kernel's path up to its store, and its ALU-pipe count;
+    raises when the kernel is not found. Left out: `tail_bits` (a
+    subroutine past the kernel's last EXIT, reached by CALL) and the call
+    site that a forward branch skips."""
+    fns = functions(text)
+    names = [n for n in fns if "pow_verify_kernel" in n]
+    if len(names) != 1:
+        raise RuntimeError("no single pow_verify_kernel in the SASS")
+    ins = fns[names[0]]
+
+    def target(text):
+        m = re.search(r"\b(?:BRA|CALL\.\w+(?:\.\w+)*) `?\(?(0x[0-9a-f]+)", text)
+        return int(m.group(1), 16) if m else None
+
+    calls = [(a, target(t)) for a, op, t in ins if op == "CALL"]
+    sub = min((t for _, t in calls if t is not None), default=None)
+    skipped = [(a, target(t)) for a, op, t in ins
+               if op == "BRA" and t.startswith("@") and target(t) is not None
+               and any(a < c < target(t) for c, _ in calls)]
+    kept = [op for a, op, _ in ins
+            if (sub is None or a < sub) and not any(lo < a < hi for lo, hi in skipped)]
+    c = Counter(kept)
+    return {"instructions": sum(c.values()), "alu": sum(v for k, v in c.items() if k in ALU),
+            "left_out": len(ins) - len(kept), "opcodes": dict(c.most_common())}

@@ -17,7 +17,11 @@ results must be identical.
 
 Then the second path, the `/auth_request` decision chain with the
 challenge plane: kernel C (the batched SHA-256 PoW check) against its
-plain version and hashlib at up to 1,048,576 lanes, and the chain
+plain version and hashlib at up to 1,048,576 lanes; the verifier's
+dispatch (`pow_dispatch`: one `_device_bits` call by the old route,
+pack → copy in → kernel C → copy out on the current stream, against the
+verifier's `PowDispatcher`, in turns, idle and behind queued kernel-A
+work); and the chain
 (`build_decision_chain`, `decision_for_nginx`) on the deploy
 configuration under a challenge storm from 32 request threads —
 131,072 distinct challengers, solved, under-target, expired, torn and
@@ -32,7 +36,8 @@ The kernel phases time each shape three ways: `ms` (CUDA events around
 than the card, and `host_enqueue_us` says so), `device_ms` (the same 20
 calls as one CUDA graph) and the plain version's `plain_ms`; kernel A's
 rows add the sweep over lines per thread and `alu_bound_ms`, kernel B's
-the shape's segments and longest segment.
+the shape's segments and longest segment, kernel C's `alu_bound_ms`
+(both ALU-pipe bounds counted from the SASS of the built library).
 
 Each phase prints one JSON line; then the kernels line, the card's name
 and power limit, and as the last line {"ok": true, "device": ...}. Any
@@ -83,6 +88,8 @@ CHALLENGE = dict(
     cross_check=2_048,     # prefix of the stream also run on the CPU
     # 1 and 2 are the shapes the storm's dispatches mostly take
     pow_lanes=(1, 2, 32, 256, 4_096, 1_048_576),
+    dispatch_lanes=(1, 2, 4, 8, 32, 256),
+    dispatch_calls=1_000,  # timed calls a route and turn
 )
 SHA_HOST = "sha.example"   # the one host in sitewide_sha_inv_list (block)
 LOG_HOST = "example.org"
@@ -107,18 +114,20 @@ SCAN_OPS = 24
 # columns and the exceeded byte out
 SCAN_BYTES = 8 * 4 + 3 + 4 * 4 + 1
 # per lane of kernel C, counted from csrc/pow_verify.cu with every
-# three-input bitwise function as one LOP3: 64 rounds x 17 (Sigma1 and
-# Sigma0 at 3 funnel shifts + one three-way xor each, Ch and Maj one each,
-# 7 adds), 48 schedule steps x 11 (sigma0 and sigma1 at 2 funnel shifts,
-# a shift and one three-way xor each, 3 adds), 13 loads + 13 byte swaps,
-# 8 digest adds, and the leading-zero count (8 clz, 8 adds, 8 compares)
-POW_OPS = 64 * 17 + 48 * 11 + 26 + 8 + 24
-# the part of POW_OPS that only the ALU pipe runs (funnel shifts, shifts,
-# LOP3, byte swaps, clz, compares); nvcc may issue the adds on the FMA
-# pipe as IMAD. Over INT32_OPS_PER_S it gives `alu_bound_ms`, a tighter
-# bound than `bound_ms`, which uses the float32 rate as rows A and B do
-POW_ALU_OPS = 64 * 10 + 48 * 8 + 13 + 8 + 8
+# three-input bitwise function as one LOP3. A round: Sigma1 and Sigma0 at
+# 3 funnel shifts + one three-way xor each, Ch and Maj one each, 7 adds
+# (6 in rounds 13-15, where K + W is a constant); round 63 computes only
+# a (+ H0): 17. A schedule step: sigma0 and sigma1 at 2 funnel shifts, a
+# shift and one three-way xor each, 3 adds (11), less what the padding
+# folds (24 over steps 16, 17, 21, 28, 29 and 30). 13 loads + 13 byte
+# swaps; the count of the first digest word (clz, compare): the words
+# past it run only when it is zero, which no lane of these inputs is
+POW_OPS = (60 * 17 + 3 * 16 + 17) + (48 * 11 - 24) + 26 + 2
 POW_BYTES = 52 + 4  # message in, count out
+# `alu_bound_ms` of kernel C divides the ALU-pipe instructions a lane,
+# counted in the run from the SASS of pow_verify_kernel
+# (sass_alu.count_pow), by INT32_OPS_PER_S: a tighter bound than
+# `bound_ms`, which uses the float32 rate as rows A and B do
 
 REPLACES = {
     "nfa_match": "banjax_tpu/matcher/kernels/nfa_match.py:212",
@@ -345,9 +354,10 @@ def check(cond: bool, what: str) -> None:
 
 
 def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
-        n_offenders, offender_hits, chunks_per_call, cross_check_chunks) -> list:
-    """Every phase on device `dev`; returns the kernels list. Raises on any
-    failed check."""
+        n_offenders, offender_hits, chunks_per_call, cross_check_chunks) -> tuple:
+    """Every phase on device `dev`; returns the kernels list and a load:
+    one launch of kernel A at the single-stage fallback's shape (on the
+    current stream, no sync). Raises on any failed check."""
     import numpy as np
     import torch
 
@@ -533,6 +543,8 @@ def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
     # ---- the kernels line ----
     s1, s2 = shape_rows["stage1"], shape_rows["stage2"]
     ev = scan_rows["events_4096"]
+    prep, c, ln = nfa_shapes["single_stage"]
+    load = lambda: nfa_match.accept_words(prep, c, ln)  # noqa: E731
     return [
         {
             "name": "nfa_match", "route": "cuda",
@@ -555,7 +567,7 @@ def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
             "bound_ms": ev["bound_ms"],
             "bound_by": ev["bound_by"], "library_ms": None, "shapes": scan_rows,
         },
-    ]
+    ], load
 
 
 # ---------------------------------------------------------------- the second path
@@ -589,11 +601,13 @@ def run_kernel_pow(dev, pow_lanes) -> dict:
     import torch
 
     from banjax_tpu_torch.crypto.challenge import count_zero_bits_from_left
-    from banjax_tpu_torch.matcher.kernels import pow_verify
+    from banjax_tpu_torch.matcher.kernels import pow_verify, sass_alu
 
     def hashlib_bits(payloads):
         return [count_zero_bits_from_left(hashlib.sha256(p).digest()) for p in payloads]
 
+    # kernel C's ALU-pipe instructions a lane, from the SASS of the library
+    sass = sass_alu.count_pow(sass_alu.sass_of(pow_verify.KERNEL.path)) if dev.type == "cuda" else None
     rng = np.random.default_rng(SEED)
     rows = {}
     host_rate = None
@@ -612,10 +626,12 @@ def run_kernel_pow(dev, pow_lanes) -> dict:
         rows[str(lanes)] = {
             "lanes": lanes, "max_abs_err": err,
             "ms": time_ms(lambda: pow_verify.leading_zero_bits(msg), dev, 20),
+            "device_ms": graph_ms(lambda: pow_verify.leading_zero_bits(msg), dev),
+            "host_enqueue_us": host_enqueue_us(lambda: pow_verify.leading_zero_bits(msg), dev),
             "plain_ms": time_ms(lambda: pow_verify.leading_zero_bits_plain(msg), dev, 2),
             "bound_ms": bound, "bound_by": by,
-            "alu_bound_ms": 1e3 * max(POW_BYTES * lanes / PEAK_BYTES_PER_S,
-                                      POW_ALU_OPS * lanes / INT32_OPS_PER_S),
+            "alu_bound_ms": None if sass is None else 1e3 * max(
+                POW_BYTES * lanes / PEAK_BYTES_PER_S, sass["alu"] * lanes / INT32_OPS_PER_S),
             "message_bytes": int(arr.nbytes),
         }
         if lanes == max(pow_lanes):
@@ -628,10 +644,103 @@ def run_kernel_pow(dev, pow_lanes) -> dict:
     check(got == hashlib_bits(degenerate), "kernel C agrees with hashlib on degenerate payloads")
     check(max(got) >= 10, "the degenerate payloads include solutions at the target")
     emit({"phase": "kernel_pow", "tolerance": 0, "shapes": rows,
-          "degenerate_bits": got})
+          "degenerate_bits": got, "sass_per_lane": sass})
     # context only (PyTorch has no SHA-256, so there is no library call)
     emit({"phase": "pow_hashlib_host", "lanes": max(pow_lanes),
           "cookies_per_s": host_rate})
+    return rows
+
+
+def run_pow_dispatch(dev, lane_counts, calls, load=None) -> dict:
+    """The wall µs of one verifier `_device_bits` call by the old route
+    (pack_payloads → leading_zero_bits → .tolist() on the current stream)
+    and by the dispatcher (a card verifier's), in turns (old, new, new,
+    old) of `calls` calls after a warm-up, every result held against
+    hashlib; the dispatcher's split (filling the slots, the C call, reading
+    the counts); and, with `load` (one launch of kernel A, no sync), one
+    one-lane call by each route timed alone: with nothing queued (the
+    baseline of a single call), behind 20 queued loads, and behind one
+    single-thread spin kernel of about the same length (which leaves the
+    SMs free: what is left is the wait for the queue). Returns the rows."""
+    import torch
+
+    from banjax_tpu_torch.challenge.verifier import DeviceVerifier, cpu_zero_bits
+    from banjax_tpu_torch.matcher.kernels import pow_verify
+
+    verifier = DeviceVerifier(batch_max=max(lane_counts), device=dev)
+    d = verifier._dispatcher  # None on the CPU, where both routes run the plain version
+
+    def old(payloads):
+        return pow_verify.leading_zero_bits(pow_verify.pack_payloads(payloads, dev)).tolist()
+
+    routes = {"old": old, "new": verifier._device_bits}
+    rng = random.Random(SEED)
+
+    def per_call_us(fn):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return 1e6 * (time.perf_counter() - t0) / calls
+
+    rows = {}
+    for lanes in lane_counts:
+        batches = [[rng.randbytes(52) for _ in range(lanes)] for _ in range(8)]
+        wants = [[cpu_zero_bits(p) for p in b] for b in batches]
+        row = {"lanes": lanes, "old_us": [], "new_us": []}
+        for route in ("old", "new", "new", "old"):
+            fn = routes[route]
+            fn(batches[0])
+            got = []
+            t0 = time.perf_counter()
+            for k in range(calls):
+                got.append(fn(batches[k % 8]))
+            row[f"{route}_us"].append(1e6 * (time.perf_counter() - t0) / calls)
+            check(all(g == wants[k % 8] for k, g in enumerate(got)),
+                  f"the {route} route agrees with hashlib at {lanes} lanes")
+        if d is not None:
+            b = batches[0]
+            row["new_fill_us"] = per_call_us(lambda: d.fill(b))
+            row["new_c_call_us"] = per_call_us(lambda: d.launch(lanes))
+            row["new_read_us"] = per_call_us(lambda: d.read(lanes))
+            check(d.read(lanes) == wants[0], f"the dispatcher's split agrees at {lanes} lanes")
+        rows[str(lanes)] = row
+
+    loaded = []
+    if load is not None and d is not None:
+        one = [rng.randbytes(52)]
+        want = [cpu_zero_bits(one[0])]
+        queue = {
+            "none": lambda: None,
+            "kernel_a": lambda: [load() for _ in range(20)],
+            "spin": lambda: torch.cuda._sleep(15_000_000),  # ~7.5 ms of one thread
+        }
+        for kind, enqueue in queue.items():
+            for route in ("old", "new", "new", "old"):
+                sync(dev)
+                t_load = time.perf_counter()
+                enqueue()
+                queued = torch.cuda.Event()
+                queued.record()
+                t0 = time.perf_counter()
+                bits = routes[route](one)
+                us = 1e6 * (time.perf_counter() - t0)
+                pending = not queued.query()
+                sync(dev)
+                check(bits == want, f"the {route} route agrees with hashlib under load")
+                loaded.append({"load": kind, "route": route, "us": us,
+                               "load_pending_at_return": pending,
+                               "load_ms": 1e3 * (time.perf_counter() - t_load)})
+    emit({"phase": "pow_dispatch", "calls": calls, "shapes": rows, "under_load": loaded,
+          "load": {"none": "nothing queued",
+                   "kernel_a": "20 launches of kernel A at the single-stage fallback's "
+                               "shape, queued on the current stream",
+                   "spin": "torch.cuda._sleep(15_000_000) on the current stream"}})
+    if d is not None:
+        for r in rows.values():
+            check(sum(r["new_us"]) <= sum(r["old_us"]),
+                  f"the dispatcher is no slower than the old route at {r['lanes']} lanes")
+        check(all(not r["load_pending_at_return"] for r in loaded if r["route"] == "old"),
+              "the old route waited for the queued load")
     return rows
 
 
@@ -777,9 +886,9 @@ def log_chunk(now: float, lines: int, log_ips: int) -> list:
 
 def host_breakdown(state, cfg, now: int, dispatch_s: float, wall: float) -> dict:
     """Where a request's time goes, one thread at a time, after the storm:
-    a cookieless first hit through the chain, one verification dispatch
-    of one lane (pack, copy in, kernel C, copy out), and hashlib for the
-    same payload."""
+    a cookieless first hit through the chain, one verification of one
+    lane through the verifier (queue, dispatch, wake-up), and hashlib for
+    the same payload."""
     from banjax_tpu_torch.challenge.verifier import cpu_zero_bits
     from banjax_tpu_torch.crypto.challenge import new_challenge_cookie_at, parse_cookie
     from banjax_tpu_torch.httpapi.decision_chain import RequestInfo, decision_for_nginx
@@ -821,11 +930,14 @@ def new_chain(cfg, dev):
 
 def run_challenge(dev, challengers, solved, under, expired, torn, wrong_binding,
                   offenders, log_lines, log_ips, threads, cross_check, pow_lanes,
+                  dispatch_lanes=CHALLENGE["dispatch_lanes"],
+                  dispatch_calls=CHALLENGE["dispatch_calls"], load=None,
                   failure_state_max=None) -> list:
-    """Kernel C, the chain under the storm, and the cross-check; returns
-    kernel C's entry of the kernels line. Raises on any failed check.
-    `failure_state_max` replaces the deploy file's bound (for a rehearsal
-    at a smaller size)."""
+    """Kernel C, its dispatch, the chain under the storm, and the
+    cross-check; returns kernel C's entry of the kernels line. Raises on
+    any failed check. `load` is `run`'s (the dispatch's loaded rows need
+    it); `failure_state_max` replaces the deploy file's bound (for a
+    rehearsal at a smaller size)."""
     import torch
 
     from banjax_tpu_torch.challenge import stats as challenge_stats
@@ -842,6 +954,7 @@ def run_challenge(dev, challengers, solved, under, expired, torn, wrong_binding,
     from banjax_tpu_torch.matcher.kernels import nfa_match, pow_verify
 
     pow_rows = run_kernel_pow(dev, pow_lanes)
+    dispatch_rows = run_pow_dispatch(dev, dispatch_lanes, dispatch_calls, load)
 
     # ---- the stream, made from SEED at a pinned clock ----
     now = int(time.time())
@@ -899,8 +1012,8 @@ def run_challenge(dev, challengers, solved, under, expired, torn, wrong_binding,
             except Exception as e:  # noqa: BLE001 — reported below
                 errors.append(repr(e))
 
-        # wall time inside the verifier's dispatches (pack, copy in,
-        # kernel C, copy out), summed over the leaders, and every lane's
+        # wall time inside the verifier's dispatches (kernel C and the
+        # host steps around it), summed over the leaders, and every lane's
         # payload and count, held against hashlib below
         v_obj, dispatch_s, dispatched = state.challenge_verifier, [0.0], []
         device_bits = v_obj._device_bits
@@ -1020,14 +1133,18 @@ def run_challenge(dev, challengers, solved, under, expired, torn, wrong_binding,
           "the cross-checked prefix verified cookies and banned")
 
     main_row = pow_rows[str(min(pow_lanes))]
+    one_lane = dispatch_rows[str(min(dispatch_lanes))]
     return [{
         "name": "pow_verify", "route": "cuda",
         "source": "banjax_tpu_torch/csrc/pow_verify.cu",
         "replaces": REPLACES["pow_verify"], "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in pow_rows.values()),
         # the storm's dispatches are mostly of one lane (batch_size_counts)
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "ms": main_row["ms"], "device_ms": main_row["device_ms"],
+        "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        # one verifier dispatch of one lane through the PowDispatcher
+        "dispatch_us": sum(one_lane["new_us"]) / len(one_lane["new_us"]),
         "library_ms": None, "shapes": pow_rows,
     }]
 
@@ -1045,7 +1162,8 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    kernels = run(dev, **FULL) + run_challenge(dev, **CHALLENGE)
+    kernels, load = run(dev, **FULL)
+    kernels += run_challenge(dev, **CHALLENGE, load=load)
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {

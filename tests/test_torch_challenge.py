@@ -238,3 +238,71 @@ def test_bounded_failure_state_matches_jax():
     for key in ("evictions_total", "spill_writes", "spill_refills", "spill_drops",
                 "gate_skips", "stale_drops"):
         assert c[key] > 0, key
+
+
+def _submit_beside_verify_batch(v, n_threads=12):
+    """n_threads callers submit 48 payloads while the test's thread runs
+    verify_batch over 40 others; returns (submitted counts, batch counts,
+    hashlib's for each)."""
+    rng = random.Random(10)
+    submitted = [bytes(rng.randrange(256) for _ in range(52)) for _ in range(48)]
+    batched = [bytes(rng.randrange(256) for _ in range(52)) for _ in range(40)]
+    got = [None] * len(submitted)
+    barrier = threading.Barrier(n_threads + 1)
+
+    def worker(k):
+        barrier.wait()
+        for i in range(k, len(submitted), n_threads):
+            got[i] = v.submit(submitted[i])
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(n_threads)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    batch_got = v.verify_batch(batched)
+    for t in threads:
+        t.join()
+    return (got, batch_got, [verifier.cpu_zero_bits(p) for p in submitted],
+            [verifier.cpu_zero_bits(p) for p in batched])
+
+
+@pytest.mark.parametrize("batch_max", [16, 2])
+def test_verify_batch_beside_12_submitting_threads_gets_hashlibs_counts(batch_max):
+    v = verifier.DeviceVerifier(batch_max=batch_max, device="cpu")
+    got, batch_got, want, batch_want = _submit_beside_verify_batch(v)
+    assert got == want and batch_got == batch_want
+    assert v.counters()["lanes_verified"] == len(want) + len(batch_want)
+    assert v.counters()["faults"] == 0
+
+
+def test_wrong_length_payloads_are_refused_with_the_pack_message():
+    bad = [b"\x00" * 52, b"short"]
+    with pytest.raises(ValueError) as pack_err:
+        pow_verify.pack_payloads(bad, "cpu")
+    v = _cpu_verifier()
+    with pytest.raises(ValueError) as err:
+        v.verify_batch(bad)
+    assert str(err.value) == str(pack_err.value) == "payload 1: want 52 bytes, got 5"
+    # the fault is the caller's, and the verifier takes traffic again
+    assert v.verify_batch(bad[:1]) == [verifier.cpu_zero_bits(bad[0])]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_a_card_verifier_dispatches_through_its_pinned_slots(cuda_device):
+    v = verifier.DeviceVerifier(batch_max=16, device=cuda_device)
+    assert isinstance(v._dispatcher, pow_verify.PowDispatcher)
+    launches = pow_verify.KERNEL.launches
+    got, batch_got, want, batch_want = _submit_beside_verify_batch(v)
+    assert got == want and batch_got == batch_want
+    c = v.counters()
+    assert c["lanes_verified"] == len(want) + len(batch_want) and c["faults"] == 0
+    assert pow_verify.KERNEL.launches - launches == c["dispatches"]
+    with pytest.raises(ValueError, match="payload 1: want 52 bytes, got 5"):
+        v.verify_batch([b"\x00" * 52, b"short"])
