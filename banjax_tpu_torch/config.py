@@ -4,10 +4,14 @@ The port reads the same YAML file as the JAX package
 (`banjax_tpu/config/schema.py`) with the same key names and the same
 strict scalar typing, but keeps only the keys its two paths use: for the
 regex rate-limit log path the rules, the allowlists, `disable_logging`,
-the decision TTL and the `matcher_*` keys; for the `/auth_request`
+the decision TTL, the `matcher_*` keys and the host tier and state
+tiering keys (`matcher_native_parse`, `slotmgr_native`,
+`traffic_sketch_*`, `slot_admission_*`, `warm_tier_*`); for the `/auth_request`
 decision chain the decision lists, the password, session and challenge
 keys and the `challenge_*` keys of the challenge plane. Every other key
-is ignored, as the full schema ignores keys it does not know.
+is ignored, as the full schema ignores keys it does not know, except the
+two that select matcher paths the port does not have: `pipeline_enabled:
+true` and a `matcher_mesh_devices` above 0 fail the load.
 `load_pages` embeds the two challenge pages as `ConfigHolder` does.
 
 `RegexWithRate.from_yaml_dict` is a copy of the schema's: RE2-dialect
@@ -84,6 +88,20 @@ class Config:
     # the port runs only the single-program chunk commit; "off" (the JAX
     # package's two-program path) is refused by TorchMatcher
     pallas_single_kernel: str = "auto"
+    # the host tier and state tiering (the JAX schema's defaults)
+    matcher_native_parse: bool = True
+    slotmgr_native: bool = True
+    traffic_sketch_enabled: bool = True
+    traffic_sketch_depth: int = 4
+    traffic_sketch_width: int = 8192
+    traffic_sketch_hll_p: int = 12
+    traffic_sketch_pull_seconds: float = 5.0
+    traffic_sketch_topk: int = 32
+    traffic_sketch_candidates: int = 8192
+    slot_admission_enabled: bool = False
+    slot_admission_min_estimate: int = 0  # <= 0: min(hits_per_interval) + 1
+    warm_tier_enabled: bool = False
+    warm_tier_capacity: int = 1 << 20
     # --- the /auth_request decision chain
     standalone_testing: bool = False
     iptables_ban_seconds: int = 0
@@ -135,6 +153,19 @@ _SCALAR_KEYS = {
     "matcher_prefilter": bool,
     "matcher_prefilter_cand_frac": float,
     "pallas_single_kernel": str,
+    "matcher_native_parse": bool,
+    "slotmgr_native": bool,
+    "traffic_sketch_enabled": bool,
+    "traffic_sketch_depth": int,
+    "traffic_sketch_width": int,
+    "traffic_sketch_hll_p": int,
+    "traffic_sketch_pull_seconds": float,
+    "traffic_sketch_topk": int,
+    "traffic_sketch_candidates": int,
+    "slot_admission_enabled": bool,
+    "slot_admission_min_estimate": int,
+    "warm_tier_enabled": bool,
+    "warm_tier_capacity": int,
     "standalone_testing": bool,
     "iptables_ban_seconds": int,
     "hmac_secret": str,
@@ -213,6 +244,59 @@ def config_from_yaml_text(text: str) -> Config:
             "config key pallas_single_kernel: expected auto|on|off, got "
             f"{cfg.pallas_single_kernel!r}"
         )
+    # matcher paths the port does not have: refused, not dropped
+    if "pipeline_enabled" in raw and raw["pipeline_enabled"] is not None:
+        if not isinstance(raw["pipeline_enabled"], bool):
+            raise ValueError(
+                f"config key pipeline_enabled: expected bool, got {raw['pipeline_enabled']!r}"
+            )
+        if raw["pipeline_enabled"]:
+            raise ValueError(
+                "config key pipeline_enabled: the streaming pipeline is not "
+                "ported; set pipeline_enabled: false"
+            )
+    mesh = raw.get("matcher_mesh_devices")
+    if mesh is not None:
+        if isinstance(mesh, bool) or not isinstance(mesh, int) or mesh < 0:
+            raise ValueError(
+                f"config key matcher_mesh_devices: expected a non-negative int, got {mesh!r}"
+            )
+        if mesh > 0:
+            raise ValueError(
+                "config key matcher_mesh_devices: the multi-device mesh is not "
+                "ported; set matcher_mesh_devices: 0"
+            )
+    if not 1 <= cfg.traffic_sketch_depth <= 8:
+        raise ValueError(
+            f"config key traffic_sketch_depth: expected 1..8, got {cfg.traffic_sketch_depth}"
+        )
+    if cfg.traffic_sketch_width < 16:
+        raise ValueError(
+            f"config key traffic_sketch_width: expected >= 16, got {cfg.traffic_sketch_width}"
+        )
+    if not 4 <= cfg.traffic_sketch_hll_p <= 16:
+        raise ValueError(
+            f"config key traffic_sketch_hll_p: expected 4..16, got {cfg.traffic_sketch_hll_p}"
+        )
+    if cfg.traffic_sketch_pull_seconds < 0:
+        raise ValueError(
+            "config key traffic_sketch_pull_seconds: expected non-negative, "
+            f"got {cfg.traffic_sketch_pull_seconds}"
+        )
+    if cfg.traffic_sketch_topk < 1 or cfg.traffic_sketch_candidates < 1:
+        raise ValueError(
+            "config keys traffic_sketch_topk/traffic_sketch_candidates: expected "
+            f">= 1, got {cfg.traffic_sketch_topk}/{cfg.traffic_sketch_candidates}"
+        )
+    if cfg.slot_admission_enabled and not (
+        cfg.traffic_sketch_enabled and cfg.matcher_device_windows
+    ):
+        raise ValueError(
+            "config key slot_admission_enabled: requires traffic_sketch_enabled "
+            "and matcher_device_windows"
+        )
+    if cfg.warm_tier_enabled and not cfg.matcher_device_windows:
+        raise ValueError("config key warm_tier_enabled: requires matcher_device_windows")
     if cfg.challenge_verify_batch_max < 1:
         raise ValueError(
             "config key challenge_verify_batch_max: expected >= 1, got "

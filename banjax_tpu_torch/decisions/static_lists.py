@@ -176,6 +176,17 @@ class StaticDecisionLists:
         fa = self.sitewide_sha_inv_list.get(site)
         return fa, fa is not None
 
+    def has_any_allow_entries(self) -> bool:
+        """False when no allow entry exists anywhere (exact or CIDR, global
+        or per site): check_is_allowed is then False for every input."""
+        if Decision.ALLOW in self.global_decision_lists.values():
+            return True
+        if Decision.ALLOW in self.global_ip_filters:
+            return True
+        if any(Decision.ALLOW in m.values() for m in self.per_site_decision_lists.values()):
+            return True
+        return any(Decision.ALLOW in f for f in self.per_site_ip_filters.values())
+
     def check_is_allowed(self, site: str, client_ip: str) -> bool:
         site_map = self.per_site_decision_lists.get(site)
         if site_map is not None and site_map.get(client_ip) == Decision.ALLOW:

@@ -15,12 +15,18 @@ chunks resolve with PipelineOverflow and the caller replays them through
 the classic fallback, in order, then calls fallback_done(). The chain
 reseeds once no chunk is outstanding.
 
+Each submitted chunk also folds its rows into the traffic sketch (the
+count-min and HLL arrays on the card), keyed on the slots it already
+uploads; an overflowed chunk's classic replay does not fold again, so a
+line counts once.
+
 The JAX package's two-program mode (a stateless match program, then a
 window program dispatched after a host decision) is not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import List, Optional
@@ -86,8 +92,12 @@ class FusedWindowsPipeline:
     in chunk order; resolve and collect in that same order."""
 
     def __init__(self, prefilter: FusedPrefilter, windows: DeviceWindows,
-                 active_table: torch.Tensor, n_rules: int):
+                 active_table: torch.Tensor, n_rules: int, traffic_sketch=None,
+                 clock=None):
         self.pf = prefilter
+        self._traffic_sketch = traffic_sketch
+        # the owner's StageClock: the sketch fold counts as "sketch"
+        self._clock = clock or (lambda name: contextlib.nullcontext())
         self.windows = windows
         self.active_table = active_table
         self.n_rules = n_rules
@@ -123,8 +133,28 @@ class FusedWindowsPipeline:
     def submit(self, cls_ids: np.ndarray, lens: np.ndarray, slots: np.ndarray,
                ts_s: np.ndarray, ts_ns: np.ndarray, host_idx: np.ndarray,
                live: Optional[np.ndarray] = None) -> _Pend:
-        """Run one chunk's program (slot pins pass to the pipeline). `live`
-        (bool [B], default all-true) masks rows out of the commit."""
+        """Run one chunk's program (slot pins pass to the pipeline, and are
+        released here if submit fails), then fold the chunk into the
+        traffic sketch. `live` (bool [B], default all-true) masks rows out
+        of the commit."""
+        try:
+            p = self._submit(cls_ids, lens, slots, ts_s, ts_ns, host_idx, live)
+        except BaseException:
+            self.windows.release_pins(slots)
+            raise
+        try:
+            self._sketch_update(p)
+        except BaseException:
+            self.abandon(p)
+            raise
+        return p
+
+    def _sketch_update(self, p: _Pend) -> None:
+        if self._traffic_sketch is not None:
+            with self._clock("sketch"):
+                self._traffic_sketch.update(p.slots, p.B)
+
+    def _submit(self, cls_ids, lens, slots, ts_s, ts_ns, host_idx, live) -> _Pend:
         cls_ids = np.asarray(cls_ids, dtype=np.int32)
         lens = np.asarray(lens, dtype=np.int32)
         B = cls_ids.shape[0]

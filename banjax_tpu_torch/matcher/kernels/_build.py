@@ -1,14 +1,17 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build and load the hand-written CUDA kernels and the host C libraries.
 
 Each `csrc/*.cu` file has a plain C interface and is compiled by `nvcc`
-for Hopper (`sm_90a`) into its own shared library, loaded with `ctypes`.
-Libraries are built at first use, from the sources in the checkout, into
-`build/kernels/` at the repository root (listed in `.gitignore`); the file
-name carries a hash of the source, so an edited kernel is rebuilt.
-`build_all` starts one `nvcc` per source at once.
+for Hopper (`sm_90a`) into its own shared library, loaded with `ctypes`;
+each `native/*.c` file (the host tier: batch parse, slot manager, warm
+tier) is compiled by the system C compiler the same way. Libraries are
+built at first use, from the sources in the checkout, into
+`build/kernels/` and `build/native/` at the repository root (listed in
+`.gitignore`); the file name carries a hash of the source, so an edited
+source is rebuilt. `build_all` starts one compiler per source at once.
+A library that cannot be built or loaded raises: nothing falls back.
 
-A library also holds its kernel's launch count: the wrapper that launches
-the kernel adds one per launch, and nothing else does.
+A CUDA library also holds its kernel's launch count: the wrapper that
+launches the kernel adds one per launch, and nothing else does.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
@@ -25,6 +29,8 @@ from typing import Dict, List, Optional, Sequence
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
+NATIVE_SRC_DIR = _PKG / "native"
+NATIVE_BUILD_DIR = _PKG.parent / "build" / "native"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,12 +48,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
+def _cc() -> str:
+    for name in ("cc", "gcc", "clang"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C compiler found: cc is needed to build the native host libraries")
+
+
 class CudaLibrary:
     """One kernel source, its built library and its launch count."""
 
+    src_dir = SRC_DIR
+    build_dir = BUILD_DIR
+
     def __init__(self, name: str, source: str, functions: Dict[str, Sequence]):
         self.name = name
-        self.source = SRC_DIR / source
+        self.source = self.src_dir / source
         self.functions = functions  # C function -> ctypes argtypes
         self.launches = 0
         self._lib: Optional[ctypes.CDLL] = None
@@ -55,15 +72,24 @@ class CudaLibrary:
     @property
     def path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
-        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+        return self.build_dir / f"lib{self.name}-{digest}.so"
+
+    def _command(self, out: Path) -> List[str]:
+        return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
+
+    def _bind(self, lib: ctypes.CDLL) -> None:
+        for fn, argtypes in self.functions.items():
+            f = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
 
     def _start_build(self) -> Optional[subprocess.Popen]:
         out = self.path
         if out.exists():
             return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        self.build_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = self._command(tmp)
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -73,7 +99,7 @@ class CudaLibrary:
     def _finish_build(self, proc: subprocess.Popen) -> None:
         output, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {self.source.name}:\n{output}")
+            raise RuntimeError(f"{proc.args[0]} failed for {self.source.name}:\n{output}")
         os.replace(proc.tmp_path, self.path)  # type: ignore[attr-defined]
 
     def lib(self) -> ctypes.CDLL:
@@ -82,10 +108,7 @@ class CudaLibrary:
             if proc is not None:
                 self._finish_build(proc)
             lib = ctypes.CDLL(str(self.path))
-            for fn, argtypes in self.functions.items():
-                f = getattr(lib, fn)
-                f.argtypes = list(argtypes)
-                f.restype = ctypes.c_int
+            self._bind(lib)
             self._lib = lib
         return self._lib
 
@@ -94,6 +117,23 @@ class CudaLibrary:
         err = getattr(self.lib(), fn)(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}.{fn} failed: CUDA error {err}")
+
+
+class HostLibrary(CudaLibrary):
+    """One host C source of `native/`, built with `cc -O3 -shared -fPIC`.
+    `functions` maps each C function to (restype, argtypes)."""
+
+    src_dir = NATIVE_SRC_DIR
+    build_dir = NATIVE_BUILD_DIR
+
+    def _command(self, out: Path) -> List[str]:
+        return [_cc(), "-O3", "-shared", "-fPIC", "-o", str(out), str(self.source), "-lm"]
+
+    def _bind(self, lib: ctypes.CDLL) -> None:
+        for fn, (restype, argtypes) in self.functions.items():
+            f = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = restype
 
 
 def build_all(libs: List[CudaLibrary]) -> float:

@@ -3,8 +3,15 @@
 
 Per batch of log lines:
 
-  host parse (encode.parse_line) + allowlist exemption
-    -> byte-class encode
+  host gate: the native batch parse + byte-class encode (`native/
+    fastparse.c`, columnar work set, allowlist per distinct (host, ip)),
+    or with matcher_native_parse: false the Python parse_line per line
+    and the Python encode
+    -> slot admission (slot_admission_enabled): rows of unseen IPs the
+       traffic sketch does not put over the cheapest threshold are
+       refused a device slot; they are matched statelessly (kernel A),
+       their windows step on the host (`DeviceWindows.apply_host_events`)
+       and they replay first
     -> per chunk of matcher_batch_lines, one device program
        (fused_windows): two-stage NFA match (kernel A), dense bitmap,
        overflow/chain gate, window commit (kernel B), compact result
@@ -19,9 +26,12 @@ apply_bitmap` (kernel B). Batches with lines the device cannot decide
 (non-ASCII or over-long) or rules the compiler cannot lower take the
 classic path with host `re` for those lines or rules.
 
-The JAX runner's streaming split protocol, native parse, native slot
-manager, traffic sketch, slot admission, warm tier, mesh, breaker,
-health, provenance and tracing are not part of this port.
+Each committed chunk also folds into the traffic sketch (`obs/sketch.py`)
+on the card. Unlike the JAX runner, nothing here swallows an error of
+the sketch hooks or the admission gate: a fault reaches the caller.
+
+The JAX runner's streaming split protocol, mesh, breaker, health,
+provenance and tracing are not part of this port.
 """
 
 from __future__ import annotations
@@ -39,13 +49,15 @@ from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
 from banjax_tpu_torch.device import DeviceLike, resolve_device
 from banjax_tpu_torch.effectors.banner import BannerInterface
 from banjax_tpu_torch.matcher.api import ConsumeLineResult, Matcher, RuleResult
-from banjax_tpu_torch.matcher.encode import encode_for_match, parse_line
+from banjax_tpu_torch.matcher.encode import ParsedLine, encode_for_match, parse_line
 from banjax_tpu_torch.matcher.fused_windows import FusedWindowsPipeline, PipelineOverflow
 from banjax_tpu_torch.matcher.kernels import fused_match_window, nfa_match
 from banjax_tpu_torch.matcher.prefilter import FusedPrefilter, PrefilterOverflow, build_plan
 from banjax_tpu_torch.matcher.rulec import compile_rules
 from banjax_tpu_torch.matcher.windows import DeviceWindows, split_ns
-from banjax_tpu_torch.matcher.workset import LazyResults, ListWork
+from banjax_tpu_torch.matcher.workset import LazyResults, ListWork, NativeWork, unique_spans
+from banjax_tpu_torch.obs.sketch import TrafficSketch
+from banjax_tpu_torch.obs.stages import StageClock
 
 log = logging.getLogger(__name__)
 
@@ -103,11 +115,50 @@ class TorchMatcher(Matcher):
         self._nfa = nfa_match.prepare(self.compiled, dev)
         self._max_len = config.matcher_max_line_len
         self._max_batch = max(_MIN_BUCKET, config.matcher_batch_lines)
+        self.clock = StageClock()
+
+        # native batch parse: built and loaded here, so a matcher that asks
+        # for it either has it or fails to start. The scratch buffers are
+        # reused batch after batch (each batch is consumed before the next
+        # parse); the allowlist cache holds one static-lists object's
+        # results per distinct (host, ip)
+        self._native = config.matcher_native_parse
+        self._parse_scratch = self._dedup_scratch = None
+        self._allow_cache: Dict[Tuple[str, str], bool] = {}
+        self._allow_cache_snap = None
+        if self._native:
+            from banjax_tpu_torch import native
+
+            native.FASTPARSE.lib()
+            self._parse_scratch = native.ParseScratch()
+            self._dedup_scratch = native.DedupScratch()
 
         self.device_windows = DeviceWindows(
             [r for _, r in self._entries],
             capacity=config.matcher_window_capacity, device=dev,
+            native_slotmgr=config.slotmgr_native,
+            warm_tier_enabled=config.warm_tier_enabled,
+            warm_tier_capacity=config.warm_tier_capacity,
         )
+        # the traffic sketch on this matcher's device, and the slot-
+        # admission gate on its estimates. min_estimate <= 0 derives the
+        # cheapest threshold: min(hits_per_interval) + 1 is the earliest
+        # row count at which any rule can fire
+        self.traffic_sketch: Optional[TrafficSketch] = None
+        if config.traffic_sketch_enabled:
+            self.traffic_sketch = TrafficSketch(
+                [r.rule for _, r in self._entries], dev,
+                depth=config.traffic_sketch_depth, width=config.traffic_sketch_width,
+                hll_p=config.traffic_sketch_hll_p,
+                pull_seconds=config.traffic_sketch_pull_seconds,
+                topk=config.traffic_sketch_topk,
+                max_candidates=config.traffic_sketch_candidates,
+            )
+        self._slot_admission = config.slot_admission_enabled and self.traffic_sketch is not None
+        me = config.slot_admission_min_estimate
+        if me <= 0:
+            me = max(1, min((r.hits_per_interval for _, r in self._entries), default=0) + 1)
+        self.admission_min_estimate = me
         # active_table[h, rid]: rule rid applies to lines of host row h
         # (that host's per-site rules + the global rules) minus hosts_to_skip
         hosts = sorted(
@@ -149,7 +200,8 @@ class TorchMatcher(Matcher):
             fused_match_window.scan_selftest(dev)
             self._fw_pipeline = FusedWindowsPipeline(
                 self._prefilter, self.device_windows, self._active_table,
-                self.compiled.n_rules,
+                self.compiled.n_rules, traffic_sketch=self.traffic_sketch,
+                clock=self.clock,
             )
 
     # ---- Matcher API ----
@@ -159,21 +211,46 @@ class TorchMatcher(Matcher):
     ) -> List[ConsumeLineResult]:
         now = time.time() if now_unix is None else now_unix
         results = LazyResults(len(lines))
-        work = self._gate(lines, now, results)
+        with self.clock("gate"):
+            work, encoded = self._gate(lines, now, results)
         if not len(work):
             return results
-        cls_ids, lens, host_eval = encode_for_match(
-            self.compiled, [p.rest for _, p in work], self._max_len
-        )
+        # refused rows replay before admitted rows (the JAX runner's order)
+        with self.clock("admission"):
+            part = self._partition_admission(work, encoded)
+        if part is not None:
+            work, encoded, work_r, encoded_r = part
+            with self.clock("refused"):
+                self._consume_refused(work_r, encoded_r, results)
+            if not len(work):
+                return results
+        if encoded is None:
+            with self.clock("encode"):
+                encoded = encode_for_match(
+                    self.compiled, [p.rest for _, p in work], self._max_len
+                )
+        cls_ids, lens, host_eval = encoded
         if self._fw_pipeline is not None and not host_eval.any():
             self._consume_via_pipeline(work, cls_ids, lens, results)
             return results
-        bits = self._match_bits(work, (cls_ids, lens, host_eval))
+        with self.clock("chunk"):
+            bits = self._match_bits(work, encoded)
         self._apply_device_windows(work, bits, results)
         return results
 
-    def _gate(self, lines, now, results) -> ListWork:
-        """Host parse + allowlist exemption, per line."""
+    def _gate(self, lines, now, results):
+        """Host parse + allowlist exemption -> (work, (cls_ids, lens,
+        host_eval) or None): one native pass when configured, else the
+        Python parse per line (encoded later)."""
+        if self._native:
+            from banjax_tpu_torch import native
+
+            nb = native.parse_encode_batch(
+                lines, self.compiled.byte_to_class, self._max_len, now,
+                OLD_LINE_CUTOFF_SECONDS, scratch=self._parse_scratch,
+            )
+            if nb is not None:
+                return self._native_gate(nb, lines, now, results)
         work = ListWork()
         for i, text in enumerate(lines):
             p = parse_line(text, now, OLD_LINE_CUTOFF_SECONDS)
@@ -188,7 +265,172 @@ class TorchMatcher(Matcher):
                 results[i].exempted = True
                 continue
             work.append((i, p))
-        return work
+        return work, None
+
+    def _native_gate(self, nb, lines, now, results):
+        """The gate over a native ParsedBatch, columnar: flag masks, unique
+        ip/host tables, the allowlist per distinct (host, ip) with a cache,
+        a NativeWork, and the pre-encoded class ids (int32 [n, max_len],
+        zero past each length). FLAG_DEFER rows re-parse and re-encode
+        through the Python path, as the JAX runner does."""
+        from banjax_tpu_torch import native
+
+        n = nb.n
+        flags = np.asarray(nb.flags[:n])
+        err = (flags & native.FLAG_ERROR) != 0
+        old = (flags & native.FLAG_OLD) != 0
+        ts = nb.ts_ns[:n].astype(np.int64, copy=True)
+
+        defer_map: Dict[int, ParsedLine] = {}
+        for r in np.flatnonzero(flags & native.FLAG_DEFER).tolist():
+            p = parse_line(lines[r], now, OLD_LINE_CUTOFF_SECONDS)
+            defer_map[r] = p
+            err[r] = p.error
+            old[r] = p.old_line
+            if not p.error:
+                # Python float()*1e9 can exceed int64: clamp the window
+                # column only (replay reads the exact int of the ParsedLine)
+                ts[r] = min(max(p.timestamp_ns, -(2**63)), 2**63 - 1)
+
+        for r in np.flatnonzero(err).tolist():
+            log.warning("could not parse log line: %r", lines[r])
+            results[r].error = True
+        for r in np.flatnonzero(old & ~err).tolist():
+            results[r].old_line = True
+
+        cand = np.flatnonzero(~err & ~old)
+        if cand.size == 0:
+            return ListWork(), None
+
+        # distinct ip/host tables over the candidate rows; deferred rows
+        # have no blob spans and join the tables afterwards, in line order
+        darr = np.asarray(sorted(defer_map), dtype=np.int64)
+        vmask = ~np.isin(cand, darr) if darr.size else np.ones(cand.size, dtype=bool)
+        vrows = cand[vmask]
+        text = nb.text()
+        ips_u, ip_inv_v = unique_spans(nb.ip_off[vrows], nb.ip_len[vrows], nb.blob, text,
+                                       self._dedup_scratch)
+        hosts_u, host_inv_v = unique_spans(nb.host_off[vrows], nb.host_len[vrows], nb.blob,
+                                           text, self._dedup_scratch)
+        ip_inv = np.empty(cand.size, dtype=np.int64)
+        host_inv = np.empty(cand.size, dtype=np.int64)
+        ip_inv[vmask] = ip_inv_v
+        host_inv[vmask] = host_inv_v
+        if darr.size:
+            iidx = {v: j for j, v in enumerate(ips_u)}
+            hidx = {v: j for j, v in enumerate(hosts_u)}
+            for r in darr.tolist():
+                k = int(np.searchsorted(cand, r))
+                if k >= cand.size or cand[k] != r:
+                    continue  # an errored or stale deferred row
+                p = defer_map[r]
+                ip_inv[k] = iidx.setdefault(p.ip, len(ips_u))
+                if ip_inv[k] == len(ips_u):
+                    ips_u.append(p.ip)
+                host_inv[k] = hidx.setdefault(p.host, len(hosts_u))
+                if host_inv[k] == len(hosts_u):
+                    hosts_u.append(p.host)
+
+        # allowlist per distinct (host, ip), cached for this static-lists
+        # object (the port's lists are built once and never change)
+        if self._allow_cache_snap is not self.decision_lists or len(self._allow_cache) > 500_000:
+            self._allow_cache = {}
+            self._allow_cache_snap = self.decision_lists
+        if self.decision_lists.has_any_allow_entries():
+            n_ip = max(1, len(ips_u))
+            upair, upair_inv = np.unique(host_inv * n_ip + ip_inv, return_inverse=True)
+            allowed_u = np.empty(upair.size, dtype=bool)
+            cache = self._allow_cache
+            check = self.decision_lists.check_is_allowed
+            for j, pr in enumerate(upair.tolist()):
+                key = (hosts_u[pr // n_ip], ips_u[pr % n_ip])
+                v = cache.get(key)
+                if v is None:
+                    v = cache[key] = check(*key)
+                allowed_u[j] = v
+            allowed = allowed_u[upair_inv]
+            for k in np.flatnonzero(allowed).tolist():
+                results[int(cand[k])].exempted = True
+            keep = ~allowed
+            rows = cand[keep]
+        else:
+            keep = slice(None)
+            rows = cand
+        if rows.size == 0:
+            return ListWork(), None
+        work = NativeWork(nb, rows, ips_u, ip_inv[keep], hosts_u, host_inv[keep], ts[rows],
+                          defer_map)
+
+        if rows.size == n:
+            # nothing filtered: views of the parse scratch, no gather copy
+            cls_ids, lens = nb.cls_ids[:n], nb.lens[:n]
+        else:
+            cls_ids, lens = nb.cls_ids[rows], nb.lens[rows]
+        host_eval = (flags[rows] & native.FLAG_HOST_EVAL) != 0
+        deferred = (flags[rows] & native.FLAG_DEFER) != 0
+        if deferred.any():
+            d_idx = np.flatnonzero(deferred)
+            d_cls, d_lens, d_he = encode_for_match(
+                self.compiled, [work[int(k)][1].rest for k in d_idx], self._max_len
+            )
+            cls_ids[d_idx] = d_cls
+            lens[d_idx] = d_lens
+            host_eval[d_idx] = d_he
+        return work, (cls_ids, lens, host_eval)
+
+    # ---- slot admission ----
+
+    def _partition_admission(self, work, encoded):
+        """Split one batch at the slot-admission gate: None when admission
+        is off or every row is admitted, else (work_admitted,
+        encoded_admitted, work_refused, encoded_refused). The split is per
+        distinct IP, so each IP's rows stay on one side in order. The gate
+        admits on `estimate + this batch's rows`; refused rows fold into
+        the sketch's host mirror so the next batch's estimate has them."""
+        if not self._slot_admission or not len(work):
+            return None
+        uips, uinv = work.unique_ips()
+        counts = np.bincount(uinv, minlength=len(uips)).astype(np.int64)
+        sk = self.traffic_sketch
+        hashes = sk.base_hashes(uips)
+        est = sk.estimate_ips(uips, hashes=hashes) + counts
+        mask_u = self.device_windows.admission_mask(
+            uips, estimates=est, min_estimate=self.admission_min_estimate, counts=counts,
+        )
+        if mask_u.all():
+            return None
+        refused_u = np.flatnonzero(~mask_u)
+        sk.fold_refused([uips[int(i)] for i in refused_u], counts[refused_u],
+                        hashes=hashes[refused_u])
+        row_mask = mask_u[uinv]
+        adm = np.flatnonzero(row_mask)
+        ref = np.flatnonzero(~row_mask)
+        enc_a = enc_r = None
+        if encoded is not None:
+            cls_ids, lens, host_eval = encoded
+            enc_a = (cls_ids[adm], lens[adm], host_eval[adm])
+            enc_r = (cls_ids[ref], lens[ref], host_eval[ref])
+        return work.take(adm), enc_a, work.take(ref), enc_r
+
+    def _consume_refused(self, work, encoded, results) -> None:
+        """Slot-refused rows: a stateless match (kernel A through the
+        prefilter, no slot, no device window state), then the window steps
+        on the host in (line, rule_id) order, homed in the warm tier, and
+        the same replay as every other path."""
+        if not len(work):
+            return
+        bits = self._match_bits(work, encoded)
+        events_in = []
+        for row in np.flatnonzero(bits.any(axis=1)).tolist():
+            _, p = work[row]
+            pos = self._rule_pos(p.host)
+            # applicable rule ids ascending == per-site-then-global
+            for idx in sorted(x for x in np.nonzero(bits[row])[0].tolist() if x in pos):
+                if self._entries[idx][1].hosts_to_skip.get(p.host):
+                    continue  # no window event (the active table's rule)
+                events_in.append((row, idx, p.ip, p.timestamp_ns))
+        events = self.device_windows.apply_host_events(events_in)
+        self._replay_window_events(work, bits, None, events, results)
 
     # ---- the fused path ----
 
@@ -207,7 +449,8 @@ class TorchMatcher(Matcher):
         q: List[dict] = []  # in-flight entries, oldest first
 
         def collect_replay(e):
-            res = fw.collect(e["pend"])
+            with self.clock("chunk"):
+                res = fw.collect(e["pend"])
             self._replay_window_events(
                 e["work"], None, (res.matched_pairs, res.always_bits), res.events, results
             )
@@ -216,7 +459,8 @@ class TorchMatcher(Matcher):
             """Resolve e; on overflow drain every earlier chunk, then replay
             e classically. False when the fallback consumed e."""
             try:
-                fw.resolve(e["pend"])
+                with self.clock("chunk"):
+                    fw.resolve(e["pend"])
                 return True
             except PipelineOverflow as ov:
                 drained = False
@@ -268,26 +512,38 @@ class TorchMatcher(Matcher):
             raise
 
     def _slots_for_work(self, work) -> Optional[np.ndarray]:
-        uips, uinv = work.unique_ips()
-        uslots = self.device_windows.slots_for_unique_ips(uips)
-        if uslots is None:
-            return None
-        return uslots[uinv]
+        """A pinned slot per row (one decision per distinct IP), or None
+        when the allocation refuses; the sketch's slot -> hash table is
+        refreshed for the batch's assignments."""
+        with self.clock("slots"):
+            uips, uinv = work.unique_ips()
+            uslots = self.device_windows.slots_for_unique_ips(uips)
+            if uslots is None:
+                return None
+            if self.traffic_sketch is not None:
+                try:
+                    with self.clock("sketch"):
+                        self.traffic_sketch.note_assignments(uips, uslots)
+                except BaseException:
+                    self.device_windows.release_pins(uslots)
+                    raise
+            return uslots[uinv]
 
     def _submit_pipeline_chunk(self, work, cls_ids, lens):
         """Allocate slots and run the chunk's program; None when slot
-        allocation refuses. Pins pass to the pipeline on success."""
-        dw = self.device_windows
+        allocation refuses. Pins pass to the pipeline's submit, which
+        releases them itself if it fails."""
         slots = self._slots_for_work(work)
         if slots is None:
             return None
         try:
             ts_s, ts_ns = split_ns(work.ts_array())
             host_idx = work.host_idx(self._host_row)
-            pend = self._fw_pipeline.submit(cls_ids, lens, slots, ts_s, ts_ns, host_idx)
         except Exception:
-            dw.release_pins(slots)
+            self.device_windows.release_pins(slots)
             raise
+        with self.clock("chunk"):
+            pend = self._fw_pipeline.submit(cls_ids, lens, slots, ts_s, ts_ns, host_idx)
         return {"work": work, "cls": cls_ids, "lens": lens, "slots": slots,
                 "ts_s": ts_s, "ts_ns": ts_ns, "host_idx": host_idx, "pend": pend}
 
@@ -297,15 +553,13 @@ class TorchMatcher(Matcher):
 
         def make(cls_c, lens_c):
             def apply_fn(work_c, slots, ts_s, ts_ns, host_idx, results_c):
-                try:
+                with self.clock("chunk"):
                     pend = self._fw_pipeline.submit(cls_c, lens_c, slots, ts_s, ts_ns, host_idx)
-                except Exception:
-                    self.device_windows.release_pins(slots)
-                    raise
                 e = {"work": work_c, "cls": cls_c, "lens": lens_c, "slots": slots,
                      "ts_s": ts_s, "ts_ns": ts_ns, "host_idx": host_idx, "pend": pend}
                 try:
-                    res = self._fw_pipeline.collect(pend)
+                    with self.clock("chunk"):
+                        res = self._fw_pipeline.collect(pend)
                 except PipelineOverflow as ov:
                     self._pipeline_fallback_entry(e, ov, results_c)
                     return
@@ -322,6 +576,13 @@ class TorchMatcher(Matcher):
 
     def _pipeline_fallback_entry(self, e, ov, results) -> None:
         """Classic replay of one gated chunk (every earlier chunk applied)."""
+        with self.clock("chunk"):
+            replay = self._pipeline_fallback_apply(e, ov)
+        self._replay_window_events(e["work"], *replay, results)
+
+    def _pipeline_fallback_apply(self, e, ov):
+        """The fallback's match and window apply -> (bits, sparse, events)
+        for the replay."""
         dw = self.device_windows
         pend = e["pend"]
         n = len(e["work"])
@@ -346,12 +607,10 @@ class TorchMatcher(Matcher):
         finally:
             self._fw_pipeline.fallback_done(pend)
         if bits is None and pend.matched_pairs is not None:
-            sparse = (pend.matched_pairs, pend.always_bits)
-            self._replay_window_events(e["work"], None, sparse, events, results)
-            return
+            return None, (pend.matched_pairs, pend.always_bits), events
         if bits is None:
             bits = pend.bits_dev[:n].cpu().numpy()
-        self._replay_window_events(e["work"], bits, None, events, results)
+        return bits, None, events
 
     # ---- replay ----
 
@@ -376,6 +635,14 @@ class TorchMatcher(Matcher):
     def _replay_window_events(self, work, bits, sparse, events, results) -> None:
         """Window events + match bookkeeping into ConsumeLineResults
         (per-site-then-global rule order, Banner per exceeded event)."""
+        with self.clock("replay"):
+            self._replay_body(work, bits, sparse, events, results)
+
+    def _replay_body(self, work, bits, sparse, events, results) -> None:
+        if self.traffic_sketch is not None and events:
+            # per-rule pressure, where every path's fired events land
+            with self.clock("sketch"):
+                self.traffic_sketch.note_rule_events(e.rule_id for e in events)
         evmap = {(e.line, e.rule_id): e for e in events}
         if sparse is not None:
             row_ids = self._sparse_row_sets(len(work), sparse)
@@ -446,9 +713,18 @@ class TorchMatcher(Matcher):
     def _apply_device_windows(self, work, bits, results) -> None:
         def make(bits_c):
             def apply_fn(work_c, slots, ts_s, ts_ns, host_idx, results_c):
-                events = self.device_windows.apply_bitmap(
-                    bits_c, slots, ts_s, ts_ns, self._active_table, host_idx
-                )
+                if self.traffic_sketch is not None:
+                    # the fused path folds at its submit instead
+                    try:
+                        with self.clock("sketch"):
+                            self.traffic_sketch.update(slots, len(work_c))
+                    except BaseException:
+                        self.device_windows.release_pins(slots)
+                        raise
+                with self.clock("chunk"):
+                    events = self.device_windows.apply_bitmap(
+                        bits_c, slots, ts_s, ts_ns, self._active_table, host_idx
+                    )
                 self._replay_window_events(work_c, bits_c, None, events, results_c)
 
             def split(lo, hi):
@@ -461,8 +737,11 @@ class TorchMatcher(Matcher):
     def _match_bits(self, work, encoded) -> np.ndarray:
         """[N, n_rules] uint8 exact match bitmap: the prefilter (or the
         single-stage match when it is off or overflows) for device rows,
-        host `re` for host_eval rows and unlowerable rules."""
+        host `re` for host_eval rows and unlowerable rules. `encoded` is
+        (cls_ids, lens, host_eval), or None to encode here."""
         n = len(work)
+        if encoded is None:
+            encoded = encode_for_match(self.compiled, [p.rest for _, p in work], self._max_len)
         cls_ids, lens, host_eval = encoded
         device_rows = np.flatnonzero(~host_eval)
         if self._prefilter is not None:

@@ -1,5 +1,5 @@
 """Device-resident fixed-window rate-limit counters (port of `banjax_tpu/
-matcher/windows.py`, dict slot path).
+matcher/windows.py`).
 
 The per-(IP slot, rule) counters live on the device as flat arrays
 (key = slot * n_rules + rule). One batch of match bits folds into them
@@ -25,10 +25,19 @@ element at its end, a drop slot: a write that the JAX code drops
 False) lands there instead, so no write needs a dynamically shaped index
 and the state outside the drop slot passes through bit-identical.
 
-IP slots are assigned on the host (dict + batch-granular LRU, pins for
-in-flight batches). Eviction is lossless: a host shadow updated from each
-batch's event-final states holds every counter, and a re-admitted IP's
-counters are restored on the device before its next events.
+IP slots are assigned on the host (batch-granular LRU, pins for in-flight
+batches), by the native slot manager (`native/slotmgr.c`, one C call a
+batch) or by the dict path, which stays as its differential oracle: both
+pick the same victims in the same order. Eviction is lossless: a host
+shadow updated from each batch's event-final states holds every counter,
+and a re-admitted IP's counters are restored on the device before its
+next events.
+
+State tiering (the deploy configuration): with the warm tier on, an
+evicted IP's shadow entry spills into the bounded native warm table
+(`native/shm.py`) and refills on its next slot claim; `admission_mask`
+is the slot-admission gate, and `apply_host_events` steps the windows of
+the rows it refused on the host, homing their state in the warm tier.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import threading
+import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -256,6 +266,9 @@ class DeviceWindows:
         device,
         capacity: int = 16384,  # matcher_window_capacity; 0 = auto-size
         max_events: int = 4096,
+        native_slotmgr: bool = False,
+        warm_tier_enabled: bool = False,
+        warm_tier_capacity: int = 1 << 20,
     ):
         self.device = torch.device(device)
         self.n_rules = max(1, len(rules))
@@ -277,20 +290,56 @@ class DeviceWindows:
         limits = np.zeros(self.n_rules, dtype=np.int32)
         iv_s = np.zeros(self.n_rules, dtype=np.int32)
         iv_ns = np.zeros(self.n_rules, dtype=np.int32)
+        iv_total = np.zeros(self.n_rules, dtype=np.int64)
         self._rule_names: List[str] = []
         for i, r in enumerate(rules):
             limits[i] = r.hits_per_interval
             iv_s[i], iv_ns[i] = divmod(int(r.interval_ns), _NS_PER_S)
+            iv_total[i] = int(r.interval_ns)
             self._rule_names.append(r.rule)
         self._limits = torch.from_numpy(limits).to(self.device)
         self._iv_s = torch.from_numpy(iv_s).to(self.device)
         self._iv_ns = torch.from_numpy(iv_ns).to(self.device)
+        # host copies for the refused-row apply (apply_host_events)
+        self._limits_np = limits
+        self._iv_total_np = iv_total
 
-        self._slots: Dict[str, int] = {}  # ip -> slot
+        # warm tier: evicted state spills here instead of staying in the
+        # unbounded shadow. The steal horizon is twice the widest window:
+        # a record whose every window has expired restarts as first-seen,
+        # so stealing it loses nothing
+        self._warm = None
+        if warm_tier_enabled:
+            from banjax_tpu_torch.native.shm import create_warm_tier
+
+            self._warm = create_warm_tier(
+                capacity=warm_tier_capacity, max_rules=self.n_rules,
+                expiry_ns=max(60 * _NS_PER_S, 2 * int(iv_total.max() or 0)),
+            )
+        self.warm_spills = 0
+        self.warm_refills = 0
+        # slot admission: refused rows are counted (and host-applied by
+        # the runner), never dropped. A slot claimed on a sketch estimate
+        # is marked; a tenure that ends with no state was an overcount
+        self.slot_refusals = 0
+        self.sketch_admissions = 0
+        self.sketch_fp_evaluated = 0
+        self.sketch_fp_count = 0
+        self._sketch_pending: set = set()
+        self._sketch_slots: Dict[int, bool] = {}
+
+        self._slots: Dict[str, int] = {}  # ip -> slot (dict path only)
         self._last_used = np.zeros(capacity, dtype=np.int64)
         self._batch_seq = 0
+        # slot -> ip in both modes (shadow updates and restores need it)
         self._slot_ip: Dict[int, str] = {}
-        self._free: List[int] = list(range(capacity - 1, -1, -1))
+        self._free: List[int] = list(range(capacity - 1, -1, -1))  # dict path only
+        self._sm = None
+        if native_slotmgr:
+            from banjax_tpu_torch.native import slotmgr
+
+            self._sm = slotmgr.create(capacity)
+        self.slotmgr_native = self._sm is not None
         self._pending_evict: List[int] = []
         self._pending_restore: List[Tuple[int, str]] = []
         # slots handed out by slots_for_ips stay pinned until the matching
@@ -315,6 +364,8 @@ class DeviceWindows:
         recently used unpinned slot is evicted to the host shadow."""
         with self._lock:
             self._batch_seq += 1
+            if self._sm is not None:
+                return self._slots_unique_native_locked(ips)
             out = np.empty(len(ips), dtype=np.int32)
             misses: List[int] = []
             get = self._slots.get
@@ -340,13 +391,164 @@ class DeviceWindows:
                 self._slots[ip] = slot
                 self._slot_ip[slot] = ip
                 self._last_used[slot] = self._batch_seq
+                if self._sketch_pending and ip in self._sketch_pending:
+                    self._sketch_pending.discard(ip)
+                    self._sketch_slots[slot] = True
                 if ip in self._shadow:
                     # a previously evicted IP returns: its counters re-enter
                     # the device before any of this batch's events apply
                     self._pending_restore.append((slot, ip))
+                elif self._warm is not None and len(self._warm):
+                    self._refill_from_warm_locked(slot, ip)
                 out[i] = slot
             self._pin_counts[out] += 1
             return out
+
+    def _slots_unique_native_locked(self, ips: Sequence[str]) -> Optional[np.ndarray]:
+        """slots_for_unique_ips by the native manager: one C lookup pass
+        (hits stamped), the growth chain between the passes, one C
+        placement pass (free stack, then the exact-argmin eviction)."""
+        sm = self._sm
+        slots, miss_idx, ctx = sm.lookup_batch(ips, self._batch_seq, self._last_used)
+        n_miss = len(miss_idx)
+        if n_miss:
+            # the dict path's per-miss doubling chain: grow while the free
+            # pool cannot absorb the remaining misses and the ceiling allows
+            new_cap = self.capacity
+            free_cnt = new_cap - len(self._slot_ip)
+            steps = 0
+            while free_cnt < n_miss and self.auto_grow and new_cap < self.max_capacity:
+                step = min(new_cap * 2, self.max_capacity)
+                free_cnt += step - new_cap
+                new_cap = step
+                steps += 1
+            if new_cap != self.capacity:
+                self._grow_locked(new_cap)
+                # one coalesced growth, counted as the dict path's doublings
+                self.grow_count += steps - 1
+        placed_idx, evicted, ok = sm.place_misses(
+            ctx, slots, miss_idx, self._batch_seq, self._pin_counts, self._last_used,
+        )
+        if len(evicted):
+            ev = [int(x) for x in evicted]
+            for x in ev:
+                self._note_eviction_locked(x, self._slot_ip.pop(x, None))
+            self._pending_evict.extend(ev)
+            if self.eviction_count == 0:
+                self._warn_first_eviction()
+            self.eviction_count += len(ev)
+        if len(placed_idx):
+            idx_l = placed_idx.tolist()
+            slot_l = slots[placed_idx].tolist()
+            ip_l = list(map(ips.__getitem__, idx_l))
+            self._slot_ip.update(zip(slot_l, ip_l))
+            pend_sketch = self._sketch_pending
+            if pend_sketch:
+                for slot, ip in zip(slot_l, ip_l):
+                    if ip in pend_sketch:
+                        pend_sketch.discard(ip)
+                        self._sketch_slots[slot] = True
+            # warm membership in one C probe over the placed ips
+            warm = self._warm
+            in_warm = warm.contains_batch(ip_l) if warm is not None and len(warm) else None
+            if self._shadow or in_warm is not None:
+                for k, (slot, ip) in enumerate(zip(slot_l, ip_l)):
+                    if ip in self._shadow:
+                        self._pending_restore.append((slot, ip))
+                    elif in_warm is not None and in_warm[k]:
+                        self._refill_from_warm_locked(slot, ip)
+        if not ok:
+            return None  # every eviction candidate pinned: the caller splits
+        self._pin_counts[slots] += 1
+        return slots
+
+    def admission_mask(
+        self,
+        ips: Sequence[str],
+        estimates: Optional[np.ndarray] = None,
+        min_estimate: int = 1,
+        counts: Optional[np.ndarray] = None,
+    ) -> np.ndarray:
+        """The slot-admission gate over a distinct ip list: bool [n], True
+        = the IP may claim a hot-tier slot this batch. First hit wins:
+        (1) already hot (membership only, no recency stamp); (2) known
+        state in the shadow or the warm tier; (3) unseen, admitted iff
+        estimates[i] >= min_estimate (count-min never under-counts, so an
+        offender is delayed at most min_estimate lines, never missed).
+        `estimates=None` admits every unseen IP; `counts` weights the
+        refusal counter by rows."""
+        n = len(ips)
+        with self._lock:
+            if n == 0:
+                return np.zeros(0, dtype=bool)
+            if self._sm is not None:
+                admit = self._sm.contains_batch(ips)
+            else:
+                slots = self._slots
+                admit = np.fromiter((ip in slots for ip in ips), dtype=bool, count=n)
+            unknown = np.flatnonzero(~admit)
+            if len(unknown) and self._shadow:
+                shadow = self._shadow
+                sh = np.fromiter((ips[int(i)] in shadow for i in unknown),
+                                 dtype=bool, count=len(unknown))
+                admit[unknown[sh]] = True
+                unknown = unknown[~sh]
+            if len(unknown) and self._warm is not None and len(self._warm):
+                wm = self._warm.contains_batch([ips[int(i)] for i in unknown])
+                admit[unknown[wm]] = True
+                unknown = unknown[~wm]
+            if len(unknown):
+                if estimates is None:
+                    admit[unknown] = True
+                else:
+                    est_ok = np.asarray(estimates)[unknown] >= min_estimate
+                    admitted = unknown[est_ok]
+                    admit[admitted] = True
+                    for i in admitted:
+                        self._sketch_pending.add(ips[int(i)])
+                    self.sketch_admissions += int(est_ok.sum())
+                    refused = unknown[~est_ok]
+                    if counts is not None:
+                        self.slot_refusals += int(np.asarray(counts)[refused].sum())
+                    else:
+                        self.slot_refusals += len(refused)
+            return admit
+
+    def _warn_first_eviction(self) -> None:
+        log.warning(
+            "device-windows capacity (%d slots) exceeded; evicting LRU IP "
+            "state to the host shadow (restored on re-admission)", self.capacity,
+        )
+
+    def _note_eviction_locked(self, slot: int, ip: Optional[str]) -> None:
+        """Tiering bookkeeping at a hot-tier eviction: the sketch-admission
+        false-positive count, and the spill of the victim's shadow entry
+        into the warm tier. When the put drops (probe window full of live
+        records) the shadow keeps the entry."""
+        if self._sketch_slots.pop(slot, False):
+            self.sketch_fp_evaluated += 1
+            if ip is None or ip not in self._shadow:
+                self.sketch_fp_count += 1
+        if self._warm is None or ip is None:
+            return
+        od = self._shadow.get(ip)
+        if not od:
+            return
+        entries = [(rid, h, s, ns) for rid, (h, s, ns) in od.items()]
+        if self._warm.put(ip, entries, time.time_ns()):
+            del self._shadow[ip]
+            self.warm_spills += 1
+
+    def _refill_from_warm_locked(self, slot: int, ip: str) -> bool:
+        """Move one IP's window vector warm -> shadow and queue its device
+        restore (before any of this batch's events for the IP)."""
+        ent = self._warm.take(ip)
+        if ent is None:
+            return False
+        self._shadow[ip] = OrderedDict((rid, (h, s, ns)) for rid, h, s, ns in ent)
+        self._pending_restore.append((slot, ip))
+        self.warm_refills += 1
+        return True
 
     def _evict_one_locked(self, batch_slots: np.ndarray) -> Optional[int]:
         """Evict the least recently used slot that is assigned, unpinned
@@ -364,13 +566,10 @@ class DeviceWindows:
             return None
         victim_ip = self._slot_ip.pop(victim)
         self._slots.pop(victim_ip)
+        self._note_eviction_locked(victim, victim_ip)
         self._pending_evict.append(victim)
         if self.eviction_count == 0:
-            log.warning(
-                "device-windows capacity (%d slots) exceeded; evicting LRU "
-                "IP state to the host shadow (restored on re-admission)",
-                self.capacity,
-            )
+            self._warn_first_eviction()
         self.eviction_count += 1
         return victim
 
@@ -391,8 +590,11 @@ class DeviceWindows:
         grown.ip_seen[:old_cap] = s.ip_seen[:old_cap]
         self._state = grown
         # pop() takes from the end: keep existing (lower) slots there so
-        # allocation order is unchanged
-        self._free = list(range(new_capacity - 1, old_cap - 1, -1)) + self._free
+        # allocation order is unchanged (the native free stack does the same)
+        if self._sm is not None:
+            self._sm.grow(new_capacity)
+        else:
+            self._free = list(range(new_capacity - 1, old_cap - 1, -1)) + self._free
         self._last_used = np.concatenate([self._last_used, np.zeros(add, dtype=np.int64)])
         self._pin_counts = np.concatenate([self._pin_counts, np.zeros(add, dtype=np.int32)])
         self.capacity = new_capacity
@@ -410,8 +612,36 @@ class DeviceWindows:
             return len(self._slot_ip)
 
     def __len__(self) -> int:
+        # IPs with any state, evicted ones included (shadow and warm tier
+        # are disjoint: a spill deletes the shadow entry)
         with self._lock:
-            return len(self._shadow)
+            return len(self._shadow) + (len(self._warm) if self._warm is not None else 0)
+
+    @property
+    def warm_occupancy(self) -> int:
+        return len(self._warm) if self._warm is not None else 0
+
+    @property
+    def warm_capacity(self) -> int:
+        return int(self._warm.capacity) if self._warm is not None else 0
+
+    @property
+    def warm_dropped(self) -> int:
+        return int(self._warm.dropped) if self._warm is not None else 0
+
+    def tier_counters(self) -> Dict[str, int]:
+        """The tiering counters, by name."""
+        return {
+            "slot_refusals": self.slot_refusals,
+            "sketch_admissions": self.sketch_admissions,
+            "sketch_fp_evaluated": self.sketch_fp_evaluated,
+            "sketch_fp_count": self.sketch_fp_count,
+            "warm_spills": self.warm_spills,
+            "warm_refills": self.warm_refills,
+            "eviction_count": self.eviction_count,
+            "warm_occupancy": self.warm_occupancy,
+            "warm_dropped": self.warm_dropped,
+        }
 
     # ---- the batch step ----
 
@@ -535,11 +765,76 @@ class DeviceWindows:
             t(vals[:, 1], torch.int32), t(vals[:, 2], torch.int32), t(r_slots),
         )
 
-    # ---- introspection through the host shadow ----
+    # ---- refused-row host apply (the slot-admission path) ----
+
+    def apply_host_events(self, events: Sequence[Tuple[int, int, str, int]]) -> List[WindowEvent]:
+        """Window transitions of slot-refused rows: `events` are
+        (row, rule_id, ip, ts_ns), sorted by (row, rule_id) — the
+        reference order. The fixed-window step of `_apply_core` in exact
+        int64 nanoseconds: restart strictly past the interval, hits reset
+        to 0 on exceed, FirstTime / OutsideInterval / InsideInterval,
+        seen_ip = the IP had state before this event. The touched vectors
+        go to the warm tier (the shadow when it is off or the put drops),
+        so a refused IP that matched anything is admitted next batch."""
+        out: List[WindowEvent] = []
+        if not events:
+            return out
+        with self._lock:
+            touched: "Dict[str, OrderedDict]" = {}
+            warm = self._warm
+            warm_live = warm is not None and len(warm) > 0
+            for row, rid, ip, ts_ns in events:
+                od = touched.get(ip)
+                if od is None:
+                    od = self._shadow.get(ip)
+                    if od is None and warm_live:
+                        ent = warm.take(ip)
+                        if ent is not None:
+                            od = OrderedDict((r, (h, s, ns)) for r, h, s, ns in ent)
+                    if od is None:
+                        od = OrderedDict()
+                    touched[ip] = od
+                seen = bool(od)
+                st = od.get(rid)
+                have = st is not None
+                outside = False
+                if have:
+                    h0, s0, n0 = st
+                    outside = int(ts_ns) - (s0 * _NS_PER_S + n0) > int(self._iv_total_np[rid])
+                if not have or outside:
+                    h1 = 1
+                    s1, n1 = divmod(int(ts_ns), _NS_PER_S)
+                else:
+                    h1 = h0 + 1
+                    s1, n1 = s0, n0
+                exceeded = h1 > int(self._limits_np[rid])
+                od[rid] = (0 if exceeded else h1, s1, n1)
+                mtype = 0 if not have else (1 if outside else 2)
+                out.append(WindowEvent(
+                    line=int(row), rule_id=int(rid),
+                    match_type=RateLimitMatchType(mtype),
+                    exceeded=bool(exceeded), seen_ip=seen,
+                ))
+            now_ns = time.time_ns()
+            for ip, od in touched.items():
+                if warm is not None:
+                    entries = [(rid, h, s, ns) for rid, (h, s, ns) in od.items()]
+                    if warm.put(ip, entries, now_ns):
+                        self._shadow.pop(ip, None)
+                        self.warm_spills += 1
+                        continue
+                self._shadow[ip] = od
+        return out
+
+    # ---- introspection through the host shadow and the warm tier ----
 
     def get(self, ip: str) -> Tuple[Dict[str, NumHitsAndIntervalStart], bool]:
         with self._lock:
             od = self._shadow.get(ip)
+            if not od and self._warm is not None:
+                ent = self._warm.peek(ip)
+                if ent:
+                    od = OrderedDict((r, (h, s, ns)) for r, h, s, ns in ent)
             if not od:
                 return {}, False
             return {
@@ -550,6 +845,12 @@ class DeviceWindows:
     def format_states(self) -> str:
         with self._lock:
             rows = [(ip, list(od.items())) for ip, od in self._shadow.items()]
+            if self._warm is not None and len(self._warm):
+                # warm-resident IPs are disjoint from the shadow
+                for ip in self._warm.keys():
+                    ent = self._warm.peek(ip)
+                    if ent:
+                        rows.append((ip, [(r, (h, s, ns)) for r, h, s, ns in ent]))
         if not rows:
             return ""
         lines: List[str] = []

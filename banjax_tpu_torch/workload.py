@@ -143,3 +143,33 @@ def attack_lines(n: int, patterns: list, now: float, seed: int = 13) -> list:
         f"{synthesize_match(rng.choice(patterns), rng)}"
         for i in range(n)
     ]
+
+
+def tiering_log(n: int, patterns: list, now: float, seed: int = 7, repeaters: int = 81_920,
+                n_offenders: int = 40, offender_hits: int = 40, attack_rate: float = 0.02,
+                span_s: float = 9.0) -> list:
+    """`n` access-log lines for the state-tiering path: `repeaters` IPs
+    that each appear three times, a third of the stream apart (first
+    appearances over the first third, in repeater order), `n_offenders`
+    IPs repeating one attack line `offender_hits` times at random, and
+    one-shot IPs for the rest; the rests are generate_lines traffic at
+    `attack_rate`. Timestamps rise over the `span_s` seconds before `now`."""
+    rng = random.Random(seed)
+    n_rep = min(repeaters, (n - n_offenders * offender_hits) // 3)
+    keyed = []  # (position in the stream, ip, offender's rest or None)
+    for r in range(n_rep):
+        t1 = r / n_rep / 3
+        for k in range(3):
+            keyed.append((t1 + k / 3 + rng.random() * 1e-4, f"100.{64 + (r >> 16)}.{(r >> 8) & 255}.{r & 255}", None))
+    for k in range(n_offenders):
+        rest = synthesize_match(rng.choice(patterns), rng)
+        ip = f"203.0.{k // 250}.{k % 250 + 1}"
+        keyed += [(rng.random(), ip, rest) for _ in range(offender_hits)]
+    for i in range(n - len(keyed)):
+        keyed.append((rng.random(), f"198.{18 + (i >> 16)}.{(i >> 8) & 255}.{i & 255}", None))
+    keyed.sort(key=lambda x: x[0])
+    rests = generate_lines(n, patterns, seed=seed, attack_rate=attack_rate)
+    return [
+        f"{now - span_s + span_s * i / max(1, n):.6f} {ip} {rests[i] if own is None else own}"
+        for i, (_, ip, own) in enumerate(keyed)
+    ]

@@ -11,9 +11,23 @@ chunk) — at the size a deployment holds: 1,000 OWASP-CRS-shaped rules,
 4,096-line chunks of 256-byte lines, 65,536 window slots (0.85 GB of
 window state on the card), over 33 chunks of seeded traffic including
 one chunk of nothing but attack lines, which overflows the prefilter and
-is served by the classic fallback. The first chunks also go through a
-CPU matcher running the plain versions; ban-log bytes and per-line
-results must be identical.
+is served by the classic fallback. The host tier is the JAX package's
+default (native parse, native slot manager, traffic sketch; its three C
+libraries are built from `banjax_tpu_torch/native/` too); the same lines
+then go through the Python gate with the native slot manager and the
+sketch off (the route before the native host tier), and both must write
+the same ban log. The first chunks also go
+through a CPU matcher running the plain versions; ban-log bytes and
+per-line results must be identical.
+
+Then `tiering`, the deploy file's state tiering (native gate, sketch,
+slot admission with the derived threshold, warm tier) at 65,536 slots
+and 131,072 warm records over 64 chunks in which 81,920 repeater IPs
+appear three times each: refusals, admissions, evictions, warm spills
+and refills must all happen; the ban multiset and each IP's ban sequence
+must equal an ungated run's, and a prefix at 2,048 slots must give the
+same ban log, results, states, sketch arrays and counters on the card
+as on the CPU. Each path's phase prints its host µs a line by stage.
 
 Then the second path, the `/auth_request` decision chain with the
 challenge plane: kernel C (the batched SHA-256 PoW check) against its
@@ -90,6 +104,25 @@ CHALLENGE = dict(
     pow_lanes=(1, 2, 32, 256, 4_096, 1_048_576),
     dispatch_lanes=(1, 2, 4, 8, 32, 256),
     dispatch_calls=1_000,  # timed calls a route and turn
+)
+# the deploy configuration's state tiering (deploy/banjax-config.yaml:
+# native gate, sketch, slot admission with the derived threshold, warm
+# tier), cut to 65,536 slots and 131,072 warm records
+TIERING = dict(
+    n_rules=1000,
+    batch_lines=4096,
+    max_line_len=256,
+    capacity=65536,
+    warm_capacity=131_072,
+    chunks=64,
+    repeaters=81_920,       # 1.25x the slots, three appearances each
+    n_offenders=40,
+    offender_hits=40,
+    chunks_per_call=4,
+    cross_check_chunks=8,
+    cross_check_capacity=2048,
+    sketch_width=8192,
+    hll_p=12,
 )
 SHA_HOST = "sha.example"   # the one host in sitewide_sha_inv_list (block)
 LOG_HOST = "example.org"
@@ -336,6 +369,11 @@ def scan_stimulus(E: int, seed: int):
     )
 
 
+def stage_us(m, n_lines: int) -> dict:
+    """A matcher's host seconds by stage, in microseconds a line."""
+    return {k: v * 1e6 / n_lines for k, v in sorted(m.clock.seconds.items())}
+
+
 def result_key(r):
     return (
         r.error, r.old_line, r.exempted,
@@ -361,7 +399,7 @@ def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
     import numpy as np
     import torch
 
-    from banjax_tpu_torch import workload
+    from banjax_tpu_torch import native, workload
     from banjax_tpu_torch.config import config_from_yaml_text
     from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
     from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
@@ -371,19 +409,28 @@ def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
     from banjax_tpu_torch.matcher.kernels import fused_match_window as fmw
     from banjax_tpu_torch.matcher.runner import TorchMatcher
 
-    # ---- phase 1: build (one nvcc per source, all at once) ----
+    # ---- phase 1: build (one compiler per source, all at once) ----
+    host_libs = native.libraries()
+    native_s = _build.build_all(host_libs)
     libs = (nfa_match.KERNEL, fmw.KERNEL, pow_verify.KERNEL)
     build_s = _build.build_all(list(libs)) if dev.type == "cuda" else 0.0
-    emit({"phase": "build", "seconds": build_s, "libraries": [str(k.path.name) for k in libs]})
+    emit({"phase": "build", "seconds": build_s, "libraries": [str(k.path.name) for k in libs],
+          "native_seconds": native_s, "native_libraries": [str(k.path.name) for k in host_libs]})
 
-    # ---- the workload ----
+    # ---- the workload: the JAX package's defaults for the host tier
+    # (native parse, native slot manager, sketch on; admission and warm
+    # tier off, as the schema defaults them) ----
     patterns = workload.generate_rules(n_rules, seed=SEED)
-    yaml_text = workload.rules_config(
-        patterns, seed=SEED, matcher="tpu", matcher_batch_lines=batch_lines,
-        matcher_max_line_len=max_line_len, matcher_device_windows=True,
-        matcher_window_capacity=capacity, matcher_prefilter=True,
-        pallas_single_kernel="on",
-    )
+
+    def yaml_for(**keys):
+        return workload.rules_config(
+            patterns, seed=SEED, matcher="tpu", matcher_batch_lines=batch_lines,
+            matcher_max_line_len=max_line_len, matcher_device_windows=True,
+            matcher_window_capacity=capacity, matcher_prefilter=True,
+            pallas_single_kernel="on", **keys,
+        )
+
+    yaml_text = yaml_for()
     now = time.time()
     lines = workload.access_log(
         chunks * batch_lines, patterns, now, seed=SEED, n_ips=n_ips,
@@ -392,8 +439,8 @@ def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
     burst_at = (chunks // 2) * batch_lines
     lines[burst_at:burst_at] = workload.attack_lines(batch_lines, patterns, now, seed=SEED)
 
-    def new_matcher(device):
-        cfg = config_from_yaml_text(yaml_text)
+    def new_matcher(device, text=yaml_text):
+        cfg = config_from_yaml_text(text)
         log = io.StringIO()
         banner = Banner(DynamicDecisionLists(start_sweeper=False), log, io.StringIO())
         m = TorchMatcher(cfg, banner, StaticDecisionLists(cfg), device=device)
@@ -488,45 +535,66 @@ def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
         }
     emit({"phase": "kernel_window_scan", "tolerance": 0, "shapes": scan_rows})
 
-    # ---- phase 3: the main path ----
-    nfa_match.KERNEL.launches = 0
-    fmw.KERNEL.launches = 0
+    # ---- phase 3: the main path, by the native gate (the JAX package's
+    # defaults), then by the Python gate (native parse, native slots and
+    # the sketch off: the route before the native host tier), on the same
+    # lines ----
     calls = [lines[s : s + chunks_per_call * batch_lines]
              for s in range(0, len(lines), chunks_per_call * batch_lines)]
     cross_lines = cross_check_chunks * batch_lines
-    head_results, head_log = None, None
-    sync(dev)
-    t0 = time.perf_counter()
-    for k, batch in enumerate(calls):
-        if k == 0:
-            # the cross-checked chunks form the first call on their own
-            res = matcher.consume_lines(batch[:cross_lines], now_unix=now)
-            head_results = [result_key(r) for r in res]
-            head_log = ban_log.getvalue()
-            batch = batch[cross_lines:]
-        matcher.consume_lines(batch, now_unix=now)
-    sync(dev)
-    wall = time.perf_counter() - t0
-    launches = {"nfa_match": nfa_match.KERNEL.launches, "window_scan": fmw.KERNEL.launches}
-    fw = matcher._fw_pipeline
-    n_bans = ban_log.getvalue().count("\n")
-    emit({
-        "phase": "main_path", "rules": n_rules, "lines": len(lines),
-        "chunks": -(-len(lines) // batch_lines), "batch_lines": batch_lines,
-        "window_slots": capacity, "max_events": matcher.device_windows.max_events,
-        "setup_s": setup_s, "wall_s": wall, "lines_per_s": len(lines) / wall,
-        "fused_chunks": fw.sk_chunks, "fallback_chunks": fw.sk_fallbacks,
-        "ban_log_lines": n_bans, "ip_slots_used": matcher.device_windows.occupancy,
-        "launches": launches,
-        "window_state_bytes": 13 * capacity * matcher.device_windows.n_rules,
-        "peak_device_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
-    })
-    # (a CPU rehearsal runs the plain versions and launches nothing)
-    check(dev.type != "cuda" or all(v > 0 for v in launches.values()),
-          "every kernel launched on the main path")
-    check(fw.sk_fallbacks >= 1, "the overflow chunk was served by the classic fallback")
-    check(fw.sk_chunks >= chunks // 2, "the fused program committed the traffic chunks")
-    check(n_bans > 0, "the repeat offenders were banned")
+
+    def drive_main(m, log, route):
+        nfa_match.KERNEL.launches = 0
+        fmw.KERNEL.launches = 0
+        m.clock.reset()
+        head_results, head_log = None, None
+        sync(dev)
+        t0 = time.perf_counter()
+        for k, batch in enumerate(calls):
+            if k == 0:
+                # the cross-checked chunks form the first call on their own
+                res = m.consume_lines(batch[:cross_lines], now_unix=now)
+                head_results = [result_key(r) for r in res]
+                head_log = log.getvalue()
+                batch = batch[cross_lines:]
+            m.consume_lines(batch, now_unix=now)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = {"nfa_match": nfa_match.KERNEL.launches, "window_scan": fmw.KERNEL.launches}
+        fw = m._fw_pipeline
+        n_bans = log.getvalue().count("\n")
+        stages = stage_us(m, len(lines))
+        emit({
+            "phase": "main_path" if route == "native" else "main_path_python_gate",
+            "route": route, "rules": n_rules, "lines": len(lines),
+            "chunks": -(-len(lines) // batch_lines), "batch_lines": batch_lines,
+            "window_slots": capacity, "max_events": m.device_windows.max_events,
+            "setup_s": setup_s if route == "native" else None,
+            "wall_s": wall, "lines_per_s": len(lines) / wall,
+            "gate_us_per_line": stages.get("gate", 0.0) + stages.get("encode", 0.0),
+            "host_us_per_line_by_stage": stages,
+            "fused_chunks": fw.sk_chunks, "fallback_chunks": fw.sk_fallbacks,
+            "ban_log_lines": n_bans, "ip_slots_used": m.device_windows.occupancy,
+            "launches": launches,
+            "window_state_bytes": 13 * capacity * m.device_windows.n_rules,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+        })
+        # (a CPU rehearsal runs the plain versions and launches nothing)
+        check(dev.type != "cuda" or all(v > 0 for v in launches.values()),
+              f"every kernel launched on the main path ({route} gate)")
+        check(fw.sk_fallbacks >= 1, "the overflow chunk was served by the classic fallback")
+        check(fw.sk_chunks >= chunks // 2, "the fused program committed the traffic chunks")
+        check(n_bans > 0, "the repeat offenders were banned")
+        return launches, head_results, head_log
+
+    launches, head_results, head_log = drive_main(matcher, ban_log, "native")
+    check(matcher._native and matcher.device_windows.slotmgr_native
+          and matcher.traffic_sketch is not None, "the main path ran the native gate")
+    py_matcher, py_log = new_matcher(dev, yaml_for(
+        matcher_native_parse=False, slotmgr_native=False, traffic_sketch_enabled=False))
+    drive_main(py_matcher, py_log, "python")
+    check(py_log.getvalue() == ban_log.getvalue(), "both gate routes wrote the same ban log")
+    del py_matcher
 
     # ---- phase 4: the leading chunks on the CPU (plain versions) ----
     t0 = time.perf_counter()
@@ -568,6 +636,188 @@ def run(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
             "bound_by": ev["bound_by"], "library_ms": None, "shapes": scan_rows,
         },
     ], load
+
+
+# ---------------------------------------------------------------- state tiering
+
+
+def per_ip_bans(log_text: str) -> dict:
+    out = {}
+    for ln in log_text.splitlines():
+        parts = ln.split()
+        out.setdefault(parts[1].rstrip(",") if len(parts) > 1 else ln, []).append(ln)
+    return out
+
+
+def sketch_events(sk, dev, batch_lines: int, capacity: int):
+    """Device events (kernels and copies) of one chunk's sketch work on
+    the card, by torch.profiler: note_assignments of a chunk of fresh
+    IPs, then the update. None off the card."""
+    if dev.type != "cuda":
+        return None
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ips = [f"240.{i >> 16}.{(i >> 8) & 255}.{i & 255}" for i in range(batch_lines)]
+    slots = np.arange(batch_lines, dtype=np.int32) % capacity
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sk.note_assignments(ips, slots)
+        sk.update(slots, batch_lines)
+        sync(dev)
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {"events": len(names), "kernels": sum(1 for n in names if "emcpy" not in n),
+            "copies": sum(1 for n in names if "emcpy" in n)}
+
+
+def warm_probe_us(warm_capacity: int, n_rules: int, n: int = 20_000) -> dict:
+    """Host µs an IP of one `contains_batch` probe of `n` new IPs on a
+    fresh warm table of the tiering geometry, then of the same IPs again:
+    a first probe of a record faults its page in."""
+    from banjax_tpu_torch.native import shm
+
+    tier = shm.create_warm_tier(capacity=warm_capacity, max_rules=n_rules)
+    try:
+        ips = [f"250.{i >> 16}.{(i >> 8) & 255}.{i & 255}" for i in range(n)]
+        out = {}
+        for name in ("first_touch", "touched"):
+            t0 = time.perf_counter()
+            tier.contains_batch(ips)
+            out[name] = (time.perf_counter() - t0) * 1e6 / n
+        return out
+    finally:
+        tier.close()
+
+
+def run_tiering(dev, n_rules, batch_lines, max_line_len, capacity, warm_capacity, chunks,
+                repeaters, n_offenders, offender_hits, chunks_per_call, cross_check_chunks,
+                cross_check_capacity, sketch_width, hll_p) -> dict:
+    """The deploy configuration's state tiering (native gate, native slot
+    manager, sketch, slot admission with the derived threshold, warm
+    tier) at a deployment's size; then the same lines with admission and
+    the warm tier off, and a card-vs-CPU prefix at a small slot table.
+    Returns the launches of kernels A and B in the gated run."""
+    from collections import Counter
+
+    import torch
+
+    from banjax_tpu_torch import workload
+    from banjax_tpu_torch.config import config_from_yaml_text
+    from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
+    from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
+    from banjax_tpu_torch.effectors.banner import Banner
+    from banjax_tpu_torch.matcher.kernels import fused_match_window as fmw
+    from banjax_tpu_torch.matcher.kernels import nfa_match
+    from banjax_tpu_torch.matcher.runner import TorchMatcher
+    from banjax_tpu_torch.native import shm
+
+    patterns = workload.generate_rules(n_rules, seed=SEED)
+    now = time.time()
+    lines = workload.tiering_log(chunks * batch_lines, patterns, now, seed=SEED,
+                                 repeaters=repeaters, n_offenders=n_offenders,
+                                 offender_hits=offender_hits)
+
+    def new_matcher(device, gated=True, slots=capacity):
+        cfg = config_from_yaml_text(workload.rules_config(
+            patterns, seed=SEED, matcher="tpu", matcher_batch_lines=batch_lines,
+            matcher_max_line_len=max_line_len, matcher_device_windows=True,
+            matcher_window_capacity=slots, matcher_prefilter=True,
+            pallas_single_kernel="on", matcher_native_parse=True, slotmgr_native=True,
+            traffic_sketch_enabled=True, traffic_sketch_depth=4,
+            traffic_sketch_width=sketch_width, traffic_sketch_hll_p=hll_p,
+            slot_admission_enabled=gated, slot_admission_min_estimate=0,
+            warm_tier_enabled=gated, warm_tier_capacity=warm_capacity,
+        ))
+        log = io.StringIO()
+        banner = Banner(DynamicDecisionLists(start_sweeper=False), log, io.StringIO())
+        return TorchMatcher(cfg, banner, StaticDecisionLists(cfg), device=device), log
+
+    def drive(m, part, keep=False):
+        res = []
+        for s in range(0, len(part), chunks_per_call * batch_lines):
+            out = m.consume_lines(part[s : s + chunks_per_call * batch_lines], now_unix=now)
+            if keep:
+                res += [result_key(r) for r in out]
+        return res
+
+    # the gated run, timed, its launches counted
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    matcher, ban_log = new_matcher(dev)
+    dw = matcher.device_windows
+    nfa_match.KERNEL.launches = 0
+    fmw.KERNEL.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    drive(matcher, lines)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = {"nfa_match": nfa_match.KERNEL.launches, "window_scan": fmw.KERNEL.launches}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    tiers = dw.tier_counters()
+    gated_log = ban_log.getvalue()
+
+    # the same lines with admission and the warm tier off
+    ungated, ungated_log = new_matcher(dev, gated=False)
+    drive(ungated, lines)
+    same_multiset = Counter(gated_log.splitlines()) == Counter(ungated_log.getvalue().splitlines())
+    same_per_ip = per_ip_bans(gated_log) == per_ip_bans(ungated_log.getvalue())
+    del ungated
+
+    # the prefix on the card and on the CPU, at a small slot table
+    t1 = time.perf_counter()
+    head = lines[: cross_check_chunks * batch_lines]
+    sides = []
+    for device in (dev, "cpu"):
+        m, log = new_matcher(device, slots=cross_check_capacity)
+        res = drive(m, head, keep=True)
+        sides.append((res, log.getvalue(), m.device_windows.format_states(),
+                      m.traffic_sketch.arrays(), m.device_windows.tier_counters()))
+        del m
+    card, host = sides
+    cross = {
+        "results": card[0] == host[0], "ban_log": card[1] == host[1],
+        "format_states": card[2] == host[2],
+        "sketch": all((card[3][k] == host[3][k]).all() for k in ("cm", "hll", "slot_hash")),
+        "tier_counters": card[4] == host[4],
+    }
+
+    n_chunks = -(-len(lines) // batch_lines)
+    emit({
+        "phase": "tiering", "rules": n_rules, "lines": len(lines), "chunks": n_chunks,
+        "batch_lines": batch_lines, "repeaters": repeaters,
+        "admission_min_estimate": matcher.admission_min_estimate,
+        "reduced": {
+            "matcher_window_capacity": {"here": capacity, "deploy": "0 (auto-size, up to "
+                                        f"{dw.AUTO_MEM_BUDGET_BYTES // (13 * dw.n_rules)} slots)"},
+            "warm_tier_capacity": {"here": warm_capacity, "deploy": 1 << 20,
+                                   "bytes_here": shm.table_bytes(warm_capacity, dw.n_rules),
+                                   "bytes_deploy": shm.table_bytes(1 << 20, dw.n_rules)},
+        },
+        "wall_s": wall, "lines_per_s": len(lines) / wall,
+        "host_us_per_line_by_stage": stage_us(matcher, len(lines)),
+        "tier_counters": tiers, "refused_rows_folded": matcher.traffic_sketch.refused_rows_folded,
+        "sketch_device_events_per_chunk": sketch_events(matcher.traffic_sketch, dev,
+                                                        batch_lines, capacity),
+        "launches": launches, "ban_log_lines": gated_log.count("\n"),
+        "ban_multiset_equal_ungated": same_multiset, "per_ip_bans_equal_ungated": same_per_ip,
+        "cross_check": {"chunks": cross_check_chunks, "slots": cross_check_capacity,
+                        "seconds": time.perf_counter() - t1, **cross},
+        "peak_device_bytes": peak, "warm_table_bytes": dw._warm.nbytes,
+        "warm_probe_us_per_ip": warm_probe_us(warm_capacity, dw.n_rules),
+    })
+    check(tiers["slot_refusals"] > 0 and tiers["sketch_admissions"] > 0,
+          "the admission gate refused and admitted rows")
+    check(tiers["eviction_count"] > 0 and tiers["warm_spills"] > 0 and tiers["warm_refills"] > 0,
+          "hot-tier state was evicted, spilled and refilled")
+    check(gated_log.count("\n") > 0, "the offenders were banned")
+    check(same_multiset and same_per_ip,
+          "the ban multiset and every IP's ban sequence equal the ungated run's")
+    check(all(cross.values()), "the card's tiering equals the CPU plain versions' on the prefix")
+    check(dev.type != "cuda" or all(v > 0 for v in launches.values()),
+          "every kernel launched on the tiering path")
+    return launches
 
 
 # ---------------------------------------------------------------- the second path
@@ -1163,6 +1413,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     kernels, load = run(dev, **FULL)
+    tier_launches = run_tiering(dev, **TIERING)
+    for k in kernels:
+        main = k["launches"]
+        k["launches_by_path"] = {"main_path": main, "tiering": tier_launches[k["name"]]}
+        k["launches"] = main + tier_launches[k["name"]]
     kernels += run_challenge(dev, **CHALLENGE, load=load)
     emit({"kernels": kernels})
     print(card_line(), flush=True)

@@ -5,16 +5,19 @@
 
 Drives `TorchMatcher.consume_lines` on chip_smoke.py's configuration
 (1,000 OWASP-CRS-shaped rules, 4,096-line chunks of 256-byte lines,
-65,536 window slots; traffic without the all-attack chunk) and prints one
-JSON line per measurement:
+65,536 window slots; traffic without the all-attack chunk) with the
+deploy file's host-tier keys: native parse, native slot manager, traffic
+sketch, slot admission at the derived threshold and the warm tier (cut
+to 131,072 records). Prints one JSON line per measurement:
 
-* host: the seconds the Python parse + allowlist gate and the byte-class
-  encode take over the measured lines, run on their own;
-* untraced: consume_lines over the first half of the measured chunks;
+* untraced: consume_lines over the first half of the measured chunks,
+  with the matcher's host seconds by stage (`StageClock`: gate,
+  admission, slots, sketch, chunk, refused, replay) in µs a line;
 * trace: a `torch.profiler` trace (CPU + CUDA) of consume_lines over the
   second half — wall time, the summed time of every device event in it
   (kernels and copies), the device idle share (1 - device time / wall),
-  device events per chunk, and the events that took the most time;
+  device events per chunk, the events that took the most time, and the
+  host stages again (under the profiler's own cost);
 * the card's name and power limit.
 
 The first chunk is a warm-up and is not measured. Needs a CUDA device.
@@ -49,23 +52,24 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from banjax_tpu_torch import workload
+    from banjax_tpu_torch import native, workload
     from banjax_tpu_torch.config import config_from_yaml_text
     from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
     from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
     from banjax_tpu_torch.effectors.banner import Banner
-    from banjax_tpu_torch.matcher.encode import encode_for_match
     from banjax_tpu_torch.matcher.kernels import _build, fused_match_window, nfa_match
     from banjax_tpu_torch.matcher.runner import TorchMatcher
-    from banjax_tpu_torch.matcher.workset import LazyResults
 
     dev = torch.device("cuda", 0)
-    _build.build_all([nfa_match.KERNEL, fused_match_window.KERNEL])
+    _build.build_all([nfa_match.KERNEL, fused_match_window.KERNEL] + native.libraries())
     patterns = workload.generate_rules(1000, seed=7)
     cfg = config_from_yaml_text(workload.rules_config(
         patterns, seed=7, matcher="tpu", matcher_batch_lines=BATCH,
         matcher_max_line_len=256, matcher_device_windows=True,
         matcher_window_capacity=65536, pallas_single_kernel="on",
+        matcher_native_parse=True, slotmgr_native=True, traffic_sketch_enabled=True,
+        slot_admission_enabled=True, slot_admission_min_estimate=0,
+        warm_tier_enabled=True, warm_tier_capacity=131072,
     ))
     now = time.time()
     lines = workload.access_log((args.chunks + 1) * BATCH, patterns, now, seed=7,
@@ -76,16 +80,11 @@ def main() -> int:
     matcher.consume_lines(lines[:BATCH], now_unix=now)  # warm-up
     measured = lines[BATCH:]
 
-    t0 = time.perf_counter()
-    work = matcher._gate(measured, now, LazyResults(len(measured)))
-    gate_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    encode_for_match(matcher.compiled, [p.rest for _, p in work], cfg.matcher_max_line_len)
-    encode_s = time.perf_counter() - t0
-    print(json.dumps({"host": {"lines": len(measured), "gate_s": gate_s,
-                               "encode_s": encode_s}}), flush=True)
+    def stages(n):
+        return {k: v * 1e6 / n for k, v in sorted(matcher.clock.seconds.items())}
 
     def drive(part):
+        matcher.clock.reset()
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         for s in range(0, len(part), 4 * BATCH):
@@ -97,6 +96,7 @@ def main() -> int:
     half = (args.chunks // 2) * BATCH
     untraced, traced = measured[:half], measured[half:]
     untraced_s = drive(untraced)
+    untraced_stages = stages(len(untraced))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_s = drive(traced)
     n_chunks = -(-len(traced) // BATCH)
@@ -108,7 +108,8 @@ def main() -> int:
     device_s = sum(us for _, us in per_name.values()) / 1e6
     top = sorted(per_name.items(), key=lambda kv: kv[1][1], reverse=True)[:10]
     print(json.dumps({"untraced": {"lines": len(untraced), "wall_s": untraced_s,
-                                   "lines_per_s": len(untraced) / untraced_s}}), flush=True)
+                                   "lines_per_s": len(untraced) / untraced_s,
+                                   "host_us_per_line_by_stage": untraced_stages}}), flush=True)
     print(json.dumps({"trace": {
         "lines": len(traced), "chunks": n_chunks, "wall_s": wall_s,
         "lines_per_s": len(traced) / wall_s, "device_s": device_s,
@@ -116,6 +117,8 @@ def main() -> int:
         "device_events_per_chunk": sum(n for n, _ in per_name.values()) / n_chunks,
         "top_device": [{"name": name[:80], "count": n, "ms": us / 1e3}
                        for name, (n, us) in top],
+        "host_us_per_line_by_stage": stages(len(traced)),
+        "tier_counters": matcher.device_windows.tier_counters(),
     }}), flush=True)
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

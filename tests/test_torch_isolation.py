@@ -4,6 +4,7 @@ on the host when no GPU was asked for, and the kernel wrappers refuse what
 they cannot launch instead of falling back."""
 
 import ast
+import re
 import shutil
 import subprocess
 import sys
@@ -97,3 +98,55 @@ def test_chip_smoke_alone_fails_without_a_result(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def _libraries():
+    """Every library object the port defines, found on its modules."""
+    import importlib
+
+    from banjax_tpu_torch.matcher.kernels import _build
+
+    found = {}
+    for path in sorted((ROOT / "banjax_tpu_torch").rglob("*.py")):
+        mod = importlib.import_module(
+            ".".join(path.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        )
+        for value in vars(mod).values():
+            if isinstance(value, _build.CudaLibrary):
+                found[value.name] = value
+    return found
+
+
+def test_every_compiled_source_lies_in_the_port():
+    libs = _libraries()
+    assert set(libs) >= {"nfa_match", "window_scan", "pow_verify", "fastparse", "slotmgr",
+                         "shmstate"}
+    port = (ROOT / "banjax_tpu_torch").resolve()
+    for lib in libs.values():
+        assert lib.source.resolve().is_relative_to(port) and lib.source.exists(), lib.name
+        assert lib.path.resolve().is_relative_to((ROOT / "build").resolve()), lib.name
+    on_disk = {p.name for p in port.rglob("*.c")} | {p.name for p in port.rglob("*.cu")}
+    assert on_disk == {lib.source.name for lib in libs.values()}
+
+
+def test_no_port_module_names_a_path_of_the_jax_package():
+    """No string in the port's code (docstrings and `file.py:line`
+    citations of the TPU kernels aside) names the JAX package's directory,
+    so nothing is built or loaded from there."""
+    citation = re.compile(r"banjax_tpu/[\w/]+\.py:\d+")
+    bad = []
+    for path in sorted((ROOT / "banjax_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        docs = {
+            id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef, ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)
+        }
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs
+                    and ("banjax_tpu/" in citation.sub("", node.value)
+                         or node.value == "banjax_tpu")):
+                bad.append((str(path.relative_to(ROOT)), node.value))
+    assert not bad, bad
