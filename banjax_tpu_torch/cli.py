@@ -1,9 +1,37 @@
-"""Entry points of the port (mirrors of `banjax_tpu/cli.py` build_matcher
-and of the chain assembly in `banjax_tpu/httpapi/server.py`)."""
+"""Entry points of the port: `build_matcher`, `build_decision_chain` and
+the single-process service around both, `BanjaxApp` (a copy of
+`banjax_tpu/cli.py`'s, without the fabric, the pipeline, Kafka, the
+metrics reporter, multi-process workers, the flight recorder and the
+SLO engine, none of which the port has).
+
+Reference behavior (Go banjax): banjax.go:66-275 — parse the three flags,
+build the shared state, start the HTTP server and the log tailer,
+reload the config on SIGHUP and stop on SIGINT/SIGTERM.
+
+    python -m banjax_tpu_torch.cli -config-file <path> [-standalone-testing] [-debug]
+
+The app runs on the card: the tailer feeds `TorchMatcher` (kernels A and
+B), whose bans go to the ban-log files and, through the dynamic lists,
+into the serving fast path's decision table; `/auth_request` answers
+from that table or through the chain, whose PoW check is kernel C. Pass
+`device="cpu"` to `BanjaxApp` to run the plain PyTorch versions on the
+host, as the tests do.
+"""
 
 from __future__ import annotations
 
+import argparse
+import asyncio
+import gc
+import logging
+import signal
+import sys
+import threading
+from typing import Optional
+
 from banjax_tpu_torch.device import DeviceLike
+
+log = logging.getLogger(__name__)
 
 
 def build_matcher(config, banner, static_lists, device: DeviceLike = None):
@@ -43,3 +71,282 @@ def build_decision_chain(config, banner, static_lists, device: DeviceLike = None
         banner=banner,
         challenge_verifier=from_config(config, dev),
     )
+
+
+class _NoStates:
+    """The window states before the first matcher is built (no line read yet)."""
+
+    def format_states(self) -> str:
+        return ""
+
+    def get(self, ip):
+        return {}, False
+
+    def __len__(self) -> int:
+        return 0
+
+
+class RegexStatesView:
+    """/rate_limit_states reads the current matcher's device windows."""
+
+    def __init__(self, app: "BanjaxApp"):
+        self._app = app
+
+    def _target(self):
+        m = self._app._matcher
+        dw = m.device_windows if m is not None else None
+        return dw if dw is not None else _NoStates()
+
+    def format_states(self) -> str:
+        return self._target().format_states()
+
+    def get(self, ip):
+        return self._target().get(ip)
+
+    def __len__(self) -> int:
+        return len(self._target())
+
+
+class BanjaxApp:
+    """Builds the shared state and owns the workers' lifecycle (banjax.go main)."""
+
+    def __init__(self, config_file: str, standalone_testing: bool = False,
+                 debug: bool = False, device: DeviceLike = None):
+        from banjax_tpu_torch.config_holder import ConfigHolder
+        from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
+        from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
+        from banjax_tpu_torch.device import resolve_device
+        from banjax_tpu_torch.effectors.banner import Banner
+        from banjax_tpu_torch.httpapi.serve_stats import ServeFastpathStats
+        from banjax_tpu_torch.ingest.tailer import LogTailer
+        from banjax_tpu_torch.resilience.health import HealthRegistry
+
+        self.device = resolve_device(device)
+        log.info("INIT: config file: %s", config_file)
+        self.config_holder = ConfigHolder(config_file, standalone_testing, debug)
+        config = self.config_holder.get()
+        self.health = HealthRegistry()
+        self.static_lists = StaticDecisionLists(config)
+        self.dynamic_lists = DynamicDecisionLists()
+        self.serve_stats = ServeFastpathStats()
+
+        # the serving fast path: the dynamic lists mirror every insert and
+        # expiry into the table. A table that cannot be built raises here
+        # (the JAX app logs and serves through the chain)
+        self.decision_table = None
+        if config.serve_fastpath_enabled:
+            from banjax_tpu_torch.native.decisiontable import create_decision_table
+
+            self.decision_table = create_decision_table(config.serve_decision_table_capacity)
+            self.dynamic_lists.set_mirror(self.decision_table, self.serve_stats)
+
+        # ban log files (banjax.go:124-138)
+        self._banning_log_file = open(config.banning_log_file, "a", encoding="utf-8")
+        temp_path = config.banning_log_file_temp or f"{config.banning_log_file}.tmp"
+        self._banning_log_file_temp = open(temp_path, "a", encoding="utf-8")
+        self.banner = Banner(self.dynamic_lists, self._banning_log_file,
+                             self._banning_log_file_temp)
+
+        # the chain's state as build_decision_chain builds it: its PoW
+        # verifier runs kernel C on this app's device
+        chain = build_decision_chain(config, self.banner, self.static_lists, self.device)
+        self.protected_paths = chain.protected_paths
+        self.failed_challenge_states = chain.failed_challenge_states
+        self.challenge_verifier = chain.challenge_verifier
+
+        self._matcher = None
+        self._matcher_generation = -1
+        self.tailer = LogTailer(
+            config.server_log_file, self._consume_lines,
+            health=self.health.register("tailer", stale_after=60.0),
+        )
+
+        gin_log_name = "gin.log" if config.standalone_testing else config.gin_log_file
+        self._gin_log_file = None
+        if gin_log_name and gin_log_name != "-":
+            # truncate on start (the reference's os.Create), then append
+            open(gin_log_name, "w", encoding="utf-8").close()
+            self._gin_log_file = open(gin_log_name, "a", encoding="utf-8")
+        self._server_log_file = None
+        if config.standalone_testing:
+            self._server_log_file = open(config.server_log_file, "a", encoding="utf-8")
+
+        self.port: Optional[int] = None  # the bound TCP port, once serving
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._async_stop: Optional[asyncio.Event] = None
+        self._server_thread: Optional[threading.Thread] = None
+        self._started = threading.Event()
+        self._serve_error: Optional[BaseException] = None
+
+    # --- the SIGHUP body (banjax.go:101-117) ---
+    def reload(self) -> None:
+        log.info("HOT-RELOAD: reloading config")
+        try:
+            self.config_holder.reload()
+        except Exception as e:  # noqa: BLE001 — keep serving on a bad reload
+            log.error("failed to reload config: %s", e)
+            return
+        new_config = self.config_holder.get()
+        self.static_lists.update_from_config(new_config)
+        self.dynamic_lists.clear()
+        self.protected_paths.update_from_config(new_config)
+
+    def _current_matcher(self):
+        """The matcher of the current config generation, rebuilt when the
+        generation moves (regex_rate_limiter.go:59). The old matcher is
+        closed and dropped before the new one is built, so the card never
+        holds two matchers' state."""
+        cfg = self.config_holder.get()
+        generation = self.config_holder.generation
+        if self._matcher_generation != generation:
+            old, self._matcher = self._matcher, None
+            if old is not None:
+                old.close()
+                del old
+                gc.collect()
+            self._matcher = build_matcher(cfg, self.banner, self.static_lists, self.device)
+            self._matcher_generation = generation
+        return cfg, self._matcher
+
+    def _consume_lines(self, lines):
+        cfg, matcher = self._current_matcher()
+        results = matcher.consume_lines(lines)
+        if cfg.debug:
+            for result in results:
+                log.debug("consumeLine: %s", result)
+        return results  # the tailer ignores this; tests read it
+
+    def start_workers(self) -> None:
+        """Start the tailer (not the HTTP server)."""
+        self.tailer.start()
+
+    def server_deps(self):
+        from banjax_tpu_torch.httpapi.server import ServerDeps
+
+        return ServerDeps(
+            config_holder=self.config_holder,
+            static_lists=self.static_lists,
+            dynamic_lists=self.dynamic_lists,
+            protected_paths=self.protected_paths,
+            regex_states=RegexStatesView(self),
+            failed_challenge_states=self.failed_challenge_states,
+            banner=self.banner,
+            gin_log_file=self._gin_log_file,
+            server_log_file=self._server_log_file,
+            health=self.health,
+            challenge_verifier=self.challenge_verifier,
+            decision_table=self.decision_table,
+            serve_stats=self.serve_stats,
+        )
+
+    async def _serve(self, install_signal_handlers: bool, port: int) -> None:
+        from banjax_tpu_torch.httpapi.server import run_http_server
+
+        try:
+            handle = await run_http_server(self.server_deps(), port=port)
+        except BaseException as e:
+            self._serve_error = e
+            self._started.set()
+            raise
+        self.port = handle.port
+        self._async_stop = asyncio.Event()
+        if install_signal_handlers:
+            loop = asyncio.get_running_loop()
+            for sig in (signal.SIGINT, signal.SIGTERM):
+                loop.add_signal_handler(sig, self._async_stop.set)
+        self._started.set()
+        try:
+            await self._async_stop.wait()
+        finally:
+            await handle.cleanup()
+
+    def run_forever(self) -> None:
+        """Blocking run for the CLI (main thread; installs the signal handlers)."""
+        from banjax_tpu_torch.httpapi.server import LISTEN_PORT
+
+        signal.signal(signal.SIGHUP, lambda s, f: self.reload())
+        self.start_workers()
+        try:
+            asyncio.run(self._serve(True, LISTEN_PORT))
+        finally:
+            self.shutdown()
+
+    def start_background(self, port: Optional[int] = None, timeout: float = 10.0) -> None:
+        """Non-blocking run: the tailer and a server thread; returns once the
+        server listens (on `self.port`; pass port=0 for an ephemeral one)."""
+        from banjax_tpu_torch.httpapi.server import LISTEN_PORT
+
+        self.start_workers()
+        bind = LISTEN_PORT if port is None else port
+
+        def run():
+            self._loop = asyncio.new_event_loop()
+            try:
+                self._loop.run_until_complete(self._serve(False, bind))
+            except BaseException:  # noqa: BLE001 — kept in _serve_error, raised below
+                pass
+            finally:
+                self._loop.close()
+
+        self._server_thread = threading.Thread(target=run, name="http-server", daemon=True)
+        self._server_thread.start()
+        if not self._started.wait(timeout):
+            raise RuntimeError("http server did not start in time")
+        if self._serve_error is not None:
+            raise RuntimeError(f"http server failed to start: {self._serve_error}")
+
+    def stop_background(self) -> None:
+        if self._loop is not None and self._async_stop is not None:
+            self._loop.call_soon_threadsafe(self._async_stop.set)
+        if self._server_thread is not None:
+            self._server_thread.join(timeout=10)
+        self.shutdown()
+
+    def shutdown(self) -> None:
+        """Stop the workers and release what the app holds, in the JAX order:
+        the tailer first (no new bans), then the lists' sweeper, the
+        decision table, the matcher, and the files."""
+        tailer_stopped = self.tailer.stop()
+        self.dynamic_lists.close()
+        dt = self.decision_table
+        if dt is not None:
+            self.dynamic_lists.set_mirror(None)
+            self.decision_table = None
+            dt.close()
+        if not tailer_stopped:
+            # a batch still runs on the matcher: leave it to the process's end
+            log.warning("log tailer did not stop; the matcher is left open")
+        elif self._matcher is not None:
+            self._matcher.close()
+            self._matcher = None
+        for f in (self._banning_log_file, self._banning_log_file_temp,
+                  self._gin_log_file, self._server_log_file):
+            if f is not None:
+                try:
+                    f.close()
+                except OSError:
+                    pass
+
+
+def main(argv: Optional[list] = None) -> int:
+    # Go-style single-dash long flags (banjax.go:67-69)
+    parser = argparse.ArgumentParser(prog="banjax-tpu-torch", prefix_chars="-")
+    parser.add_argument("-standalone-testing", dest="standalone_testing",
+                        action="store_true", help="makes it easy to test standalone")
+    parser.add_argument("-config-file", dest="config_file",
+                        default="/etc/banjax/banjax-config.yaml", help="config file")
+    parser.add_argument("-debug", dest="debug", action="store_true",
+                        help="debug mode with verbose logging")
+    args = parser.parse_args(argv)
+
+    logging.basicConfig(
+        level=logging.DEBUG if args.debug else logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s",
+    )
+    app = BanjaxApp(args.config_file, args.standalone_testing, args.debug)
+    app.run_forever()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,10 +8,18 @@ the decision TTL, the `matcher_*` keys and the host tier and state
 tiering keys (`matcher_native_parse`, `slotmgr_native`,
 `traffic_sketch_*`, `slot_admission_*`, `warm_tier_*`); for the `/auth_request`
 decision chain the decision lists, the password, session and challenge
-keys and the `challenge_*` keys of the challenge plane. Every other key
-is ignored, as the full schema ignores keys it does not know, except the
-two that select matcher paths the port does not have: `pipeline_enabled:
-true` and a `matcher_mesh_devices` above 0 fail the load.
+keys and the `challenge_*` keys of the challenge plane; for the service
+around both (`config_holder.py`, `cli.BanjaxApp`) the log files, the
+HTTP listener keys and the serving fast path's keys.
+
+A key the JAX schema reads and the port does not (the modules it
+configures are not ported yet) is named in one warning per load and
+kept in `Config.not_ported`; it is never dropped without a word, and
+never refused, so the deploy file still loads. Keys neither schema
+knows are ignored, as the full schema ignores them. Three keys select
+paths the port does not have and fail the load: `pipeline_enabled:
+true`, a `matcher_mesh_devices` above 0, and an `http_workers` other
+than 0 (multi-process serving).
 `load_pages` embeds the two challenge pages as `ConfigHolder` does.
 
 `RegexWithRate.from_yaml_dict` is a copy of the schema's: RE2-dialect
@@ -21,6 +29,7 @@ check, Python `re` compile, Go's truncating `interval * 1e9`.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import re
 from pathlib import Path
 from typing import Any, Dict, List
@@ -29,6 +38,8 @@ import yaml
 
 from banjax_tpu_torch.decisions.model import Decision, parse_decision
 from banjax_tpu_torch.matcher.re2check import check_re2_compatible
+
+log = logging.getLogger(__name__)
 
 NANOS_PER_SECOND = 1_000_000_000
 
@@ -141,6 +152,25 @@ class Config:
     challenge_device_verify: bool = False
     challenge_verify_batch_max: int = 256
     challenge_failure_state_max: int = 0
+    # --- the service: log files, the holder's required keys, the listener
+    server_log_file: str = ""
+    banning_log_file: str = ""
+    banning_log_file_temp: str = ""
+    gin_log_file: str = ""
+    config_version: str = ""
+    debug: bool = False
+    kafka_brokers: List[str] = dataclasses.field(default_factory=list)
+    http_workers: int = 0
+    http_fast_path: bool = True
+    http_listen_host: str = ""
+    admin_token: str = ""
+    serve_fastpath_enabled: bool = True
+    serve_decision_table_capacity: int = 65536
+    # not YAML keys: the holder sets them
+    restart_time: int = 0
+    reload_time: int = 0
+    # JAX-schema keys in the file that the port does not read
+    not_ported: List[str] = dataclasses.field(default_factory=list)
 
 
 _SCALAR_KEYS = {
@@ -183,6 +213,18 @@ _SCALAR_KEYS = {
     "challenge_device_verify": bool,
     "challenge_verify_batch_max": int,
     "challenge_failure_state_max": int,
+    "server_log_file": str,
+    "banning_log_file": str,
+    "banning_log_file_temp": str,
+    "gin_log_file": str,
+    "config_version": str,
+    "debug": bool,
+    "http_workers": int,
+    "http_fast_path": bool,
+    "http_listen_host": str,
+    "admin_token": str,
+    "serve_fastpath_enabled": bool,
+    "serve_decision_table_capacity": int,
 }
 
 _DICT_KEYS = (
@@ -195,15 +237,55 @@ _DICT_KEYS = (
     "sha_inv_path_exceptions",
 )
 
+# keys the port reads besides the two tables above
+_OTHER_KEYS = (
+    "regexes_with_rates", "per_site_regexes_with_rates", "kafka_brokers",
+    "pipeline_enabled", "matcher_mesh_devices",
+)
+
+# the rest of the JAX schema's keys (`banjax_tpu/config/schema.py:504-577`):
+# read there, not here, until their modules are ported
+_NOT_PORTED_KEYS = frozenset((
+    "block_ip_ttl_seconds", "block_session_ttl_seconds",
+    "breaker_failure_threshold", "breaker_recovery_seconds", "breaker_window_size",
+    "disable_kafka_writer", "dnet", "dnet_to_partition", "drain_resolve_depth",
+    "encode_workers", "fabric_enabled", "fabric_frame_max_bytes",
+    "fabric_gossip_interval_ms", "fabric_graceful_leave_ms", "fabric_indirect_probes",
+    "fabric_inflight_frames", "fabric_listen", "fabric_node_id", "fabric_peers",
+    "fabric_send_timeout_ms", "fabric_shm_enabled", "fabric_shm_ring_bytes",
+    "fabric_suspect_timeout_ms", "fabric_takeover_grace_ms",
+    "fabric_trace_propagation", "fabric_vnodes", "fabric_wire_v2", "failpoints",
+    "failpoints_admin_enabled", "fleet_metrics_enabled", "fleet_scrape_timeout_ms",
+    "flightrec_dir", "flightrec_fleet_capture", "flightrec_keep",
+    "flightrec_min_interval_s", "flightrec_provenance_records",
+    "ipset_netlink_enabled", "iptables_unbanner_seconds", "kafka_command_topic",
+    "kafka_dialer_keep_alive_seconds", "kafka_dialer_timeout_seconds",
+    "kafka_max_bytes", "kafka_max_wait_ms", "kafka_min_bytes", "kafka_report_topic",
+    "kafka_security_protocol", "kafka_ssl_ca", "kafka_ssl_cert", "kafka_ssl_key",
+    "kafka_ssl_key_password", "matcher_backend", "matcher_latency_budget_ms",
+    "matcher_mesh_rp", "matcher_probe_seconds", "metrics_log_file",
+    "pipeline_buffer_lines", "pipeline_command_take_max", "pipeline_fused",
+    "pipeline_kafka", "pipeline_latency_budget_ms", "pipeline_max_block_ms",
+    "pipeline_ring_size", "profile", "provenance_enabled", "provenance_ring_size",
+    "sites_to_block_ip_ttl_seconds", "sites_to_block_session_ttl_seconds",
+    "slo_batch_latency_target", "slo_breaker_open_ratio_max",
+    "slo_budget_trip_ratio_max", "slo_enabled", "slo_sample_seconds",
+    "slo_shed_ratio_max", "slo_stale_ratio_max", "trace_enabled",
+    "trace_jax_annotations", "trace_ring_size",
+))
+
 _PAGES_DIR = Path(__file__).resolve().parent / "httpapi" / "pages"
 
 
-def config_from_yaml_text(text: str) -> Config:
-    """Parse YAML text into the slice's Config; a bad rule fails the load."""
+def config_from_yaml_text(text: str, standalone_testing_default: bool = False) -> Config:
+    """Parse YAML text into the slice's Config; a bad rule fails the load.
+    `standalone_testing_default` seeds the field before the YAML is read,
+    so an explicit `standalone_testing:` key wins (config_holder.go:89-90)."""
     raw = yaml.safe_load(text) or {}
     if not isinstance(raw, dict):
         raise ValueError("config root must be a mapping")
     cfg = Config()
+    cfg.standalone_testing = standalone_testing_default
     for key, typ in _SCALAR_KEYS.items():
         if key not in raw or raw[key] is None:
             continue
@@ -226,6 +308,10 @@ def config_from_yaml_text(text: str) -> Config:
             if not isinstance(raw[key], dict):
                 raise ValueError(f"config key {key}: expected dict, got {raw[key]!r}")
             setattr(cfg, key, raw[key])
+    if raw.get("kafka_brokers") is not None:
+        if not isinstance(raw["kafka_brokers"], list):
+            raise ValueError(f"config key kafka_brokers: expected list, got {raw['kafka_brokers']!r}")
+        cfg.kafka_brokers = raw["kafka_brokers"]
     for entry in raw.get("regexes_with_rates") or []:
         cfg.regexes_with_rates.append(RegexWithRate.from_yaml_dict(entry))
     for site, entries in (raw.get("per_site_regexes_with_rates") or {}).items():
@@ -266,6 +352,11 @@ def config_from_yaml_text(text: str) -> Config:
                 "config key matcher_mesh_devices: the multi-device mesh is not "
                 "ported; set matcher_mesh_devices: 0"
             )
+    if cfg.http_workers != 0:
+        raise ValueError(
+            "config key http_workers: multi-process serving is not ported; "
+            f"set http_workers: 0, got {cfg.http_workers}"
+        )
     if not 1 <= cfg.traffic_sketch_depth <= 8:
         raise ValueError(
             f"config key traffic_sketch_depth: expected 1..8, got {cfg.traffic_sketch_depth}"
@@ -307,6 +398,14 @@ def config_from_yaml_text(text: str) -> Config:
             "config key challenge_failure_state_max: expected 0 (unbounded) "
             f"or a positive entry count, got {cfg.challenge_failure_state_max}"
         )
+    if cfg.serve_decision_table_capacity < 1:
+        raise ValueError(
+            "config key serve_decision_table_capacity: expected >= 1 (rounded "
+            f"up to a power of two), got {cfg.serve_decision_table_capacity}"
+        )
+    cfg.not_ported = sorted(k for k in raw if k in _NOT_PORTED_KEYS)
+    if cfg.not_ported:
+        log.warning("not ported: %s", ", ".join(cfg.not_ported))
     return cfg
 
 

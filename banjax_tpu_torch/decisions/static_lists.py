@@ -103,8 +103,8 @@ class IPFilter:
         return any(addr in net for net in self._slow_networks)
 
 
-class StaticDecisionLists:
-    """Config-sourced decision maps (decision.go:278-374)."""
+class _Snapshot:
+    """The lists built from one config; swapped whole on a reload."""
 
     def __init__(self, config: Config):
         self.global_decision_lists: Dict[str, Decision] = {}
@@ -137,12 +137,28 @@ class StaticDecisionLists:
             config.per_site_user_agent_decision_lists
         )
 
+
+class StaticDecisionLists:
+    """Config-sourced decision maps (decision.go:278-374). A reload builds
+    a new snapshot and swaps it in whole, so a reader never sees a part of
+    one; `generation` moves on each swap (the matcher's allowlist cache
+    keys on it)."""
+
+    def __init__(self, config: Config):
+        self._s = _Snapshot(config)
+        self.generation = 0
+
+    def update_from_config(self, config: Config) -> None:
+        self._s = _Snapshot(config)
+        self.generation += 1
+
     def check_per_site(self, site: str, client_ip: str) -> Tuple[Optional[Decision], bool]:
         """decision.go:115-139 — exact map first, then per-decision filters in order."""
-        site_map = self.per_site_decision_lists.get(site)
+        c = self._s
+        site_map = c.per_site_decision_lists.get(site)
         if site_map is not None and client_ip in site_map:
             return site_map[client_ip], True
-        site_filters = self.per_site_ip_filters.get(site)
+        site_filters = c.per_site_ip_filters.get(site)
         if site_filters:
             for decision in _FILTER_CHECK_ORDER:
                 f = site_filters.get(decision)
@@ -152,51 +168,62 @@ class StaticDecisionLists:
 
     def check_global(self, client_ip: str) -> Tuple[Optional[Decision], bool]:
         """decision.go:141-162."""
-        if client_ip in self.global_decision_lists:
-            return self.global_decision_lists[client_ip], True
+        c = self._s
+        if client_ip in c.global_decision_lists:
+            return c.global_decision_lists[client_ip], True
         for decision in _FILTER_CHECK_ORDER:
-            f = self.global_ip_filters.get(decision)
+            f = c.global_ip_filters.get(decision)
             if f is not None and f.allowed(client_ip):
                 return decision, True
         return None, False
 
     def check_per_site_user_agent(self, site: str, user_agent: str) -> Tuple[Optional[Decision], bool]:
         """decision.go:164-171."""
-        rules = self.per_site_ua_rules.get(site)
+        c = self._s
+        rules = c.per_site_ua_rules.get(site)
         if rules is None:
             return None, False
         return check_ua_decision(rules, user_agent)
 
     def check_global_user_agent(self, user_agent: str) -> Tuple[Optional[Decision], bool]:
         """decision.go:173-176."""
-        return check_ua_decision(self.global_ua_rules, user_agent)
+        c = self._s
+        return check_ua_decision(c.global_ua_rules, user_agent)
 
     def check_sitewide_sha_inv(self, site: str) -> Tuple[Optional[FailAction], bool]:
         """decision.go:178-183."""
-        fa = self.sitewide_sha_inv_list.get(site)
+        c = self._s
+        fa = c.sitewide_sha_inv_list.get(site)
         return fa, fa is not None
 
     def has_any_allow_entries(self) -> bool:
         """False when no allow entry exists anywhere (exact or CIDR, global
         or per site): check_is_allowed is then False for every input."""
-        if Decision.ALLOW in self.global_decision_lists.values():
+        c = self._s
+        if Decision.ALLOW in c.global_decision_lists.values():
             return True
-        if Decision.ALLOW in self.global_ip_filters:
+        if Decision.ALLOW in c.global_ip_filters:
             return True
-        if any(Decision.ALLOW in m.values() for m in self.per_site_decision_lists.values()):
+        if any(Decision.ALLOW in m.values() for m in c.per_site_decision_lists.values()):
             return True
-        return any(Decision.ALLOW in f for f in self.per_site_ip_filters.values())
+        return any(Decision.ALLOW in f for f in c.per_site_ip_filters.values())
 
     def check_is_allowed(self, site: str, client_ip: str) -> bool:
-        site_map = self.per_site_decision_lists.get(site)
+        c = self._s
+        site_map = c.per_site_decision_lists.get(site)
         if site_map is not None and site_map.get(client_ip) == Decision.ALLOW:
             return True
-        site_filters = self.per_site_ip_filters.get(site)
+        site_filters = c.per_site_ip_filters.get(site)
         if site_filters:
             f = site_filters.get(Decision.ALLOW)
             if f is not None and f.allowed(client_ip):
                 return True
-        if self.global_decision_lists.get(client_ip) == Decision.ALLOW:
+        if c.global_decision_lists.get(client_ip) == Decision.ALLOW:
             return True
-        f = self.global_ip_filters.get(Decision.ALLOW)
+        f = c.global_ip_filters.get(Decision.ALLOW)
         return f is not None and f.allowed(client_ip)
+
+    def format_lists(self) -> Tuple[Dict[str, Dict[str, Decision]], Dict[str, Decision]]:
+        """(per-site, global) exact IP maps, for /decision_lists."""
+        c = self._s
+        return c.per_site_decision_lists, c.global_decision_lists

@@ -8,7 +8,9 @@ ban logs write the same bytes as the JAX package's (field order of the
 reference's LogJson struct, compact JSON, local-time
 "%Y-%m-%dT%H:%M:%S", the `_temp` file for hosts in `disable_logging`).
 The kernel edge (ipset, netlink) is not ported yet, so `_ban_ip` keeps
-only its skip rules.
+only its skip rules, and the `ipset_*` methods the admin routes call
+behave as the JAX Banner's do with no ipset instance: an add and a
+delete do nothing, a test is False and the list is empty.
 """
 
 from __future__ import annotations
@@ -69,6 +71,18 @@ class BannerInterface:
         too_many_failed_challenges_threshold: int, user_agent: str,
         decision: Decision, method: str,
     ) -> None:
+        raise NotImplementedError
+
+    def ipset_add(self, config: Config, ip: str) -> None:
+        raise NotImplementedError
+
+    def ipset_test(self, config: Config, ip: str) -> bool:
+        raise NotImplementedError
+
+    def ipset_list(self) -> List[str]:
+        raise NotImplementedError
+
+    def ipset_del(self, ip: str) -> None:
         raise NotImplementedError
 
 
@@ -148,6 +162,18 @@ class Banner(BannerInterface):
         with self._log_lock:
             target.write(line + "\n")
             target.flush()
+
+    def ipset_add(self, config: Config, ip: str) -> None:
+        pass
+
+    def ipset_test(self, config: Config, ip: str) -> bool:
+        return False
+
+    def ipset_list(self) -> List[str]:
+        return []
+
+    def ipset_del(self, ip: str) -> None:
+        pass
 
 
 def _ban_ip(config: Config, ip: str) -> None:

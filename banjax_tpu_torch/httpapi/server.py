@@ -1,0 +1,583 @@
+"""The HTTP request API (a copy of `banjax_tpu/httpapi/server.py`).
+
+Reference behavior (Go banjax): internal/http_server.go:32-332 — a server
+on 127.0.0.1:8081 with: a JSON access-log middleware, a recovery
+middleware that FAILS OPEN (X-Accel-Redirect: @fail_open + 500 with an
+X-Banjax-Error header) on any handler crash, a standalone-testing
+middleware that fakes the nginx X-* headers and writes the nginx-format
+access log line itself, and these routes:
+
+  ANY  /auth_request        — the decision chain
+  GET  /info                — config version
+  GET  /healthz             — component health (admin-gated off loopback)
+  GET  /decision_lists      — formatted static+dynamic lists
+  GET  /rate_limit_states   — formatted rate-limit states
+  GET  /is_banned?ip=       — expiring-list + ipset lookup
+  GET  /ipset/list          — raw ipset entries
+  GET  /banned?domain=      — expiring entries for a domain
+  POST /unban               — remove an IP from expiring list + ipset
+
+Single process only (multi-process workers are not ported). Not ported
+yet: /metrics, /debug/*, /decisions/explain, /traffic/top and the pprof
+routes (observability is a later slice). `run_http_server` takes the
+port (the reference's 8081 by default) so that a test binds port 0. The
+recovery middleware counts every fail-open answer on the app's
+ServeFastpathStats.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import hmac
+import json
+import logging
+import os
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Optional, TextIO
+
+from aiohttp import web
+
+from banjax_tpu_torch.config_holder import ConfigHolder
+from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
+from banjax_tpu_torch.decisions.model import Decision
+from banjax_tpu_torch.decisions.protected_paths import PasswordProtectedPaths
+from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
+from banjax_tpu_torch.effectors.banner import BannerInterface
+from banjax_tpu_torch.httpapi.decision_chain import (
+    ChainState,
+    DecisionListResult,
+    RequestInfo,
+    Response,
+    decision_for_nginx,
+)
+from banjax_tpu_torch.httpapi.fastserve import _clean_header
+from banjax_tpu_torch.httpapi.serve_stats import ServeFastpathStats
+from banjax_tpu_torch.utils import go_query_escape, go_query_unescape
+
+log = logging.getLogger(__name__)
+
+LISTEN_HOST = "127.0.0.1"
+LISTEN_PORT = 8081  # http_server.go:42
+
+_LOOPBACK_HOSTS = {"", "127.0.0.1", "::1", "localhost"}
+
+
+def is_loopback_host(host: str) -> bool:
+    return (host or "").strip("[]") in _LOOPBACK_HOSTS or (host or "").startswith("127.")
+
+
+def admin_auth_ok(config, listen_host: str, authorization: str) -> bool:
+    """Gate of the admin surface (/healthz here). Open on a loopback
+    listener or when no `admin_token` is configured; otherwise the request
+    must carry `Authorization: Bearer <token>`, compared in constant time."""
+    token = config.admin_token or ""
+    if not token or is_loopback_host(listen_host):
+        return True
+    provided = authorization or ""
+    if provided.startswith("Bearer "):
+        provided = provided[len("Bearer "):]
+    return hmac.compare_digest(token.encode(), provided.encode())
+
+
+@dataclasses.dataclass
+class ServerDeps:
+    config_holder: ConfigHolder
+    static_lists: StaticDecisionLists
+    dynamic_lists: DynamicDecisionLists
+    protected_paths: PasswordProtectedPaths
+    regex_states: object  # format_states(), get(ip), len(): cli.RegexStatesView
+    failed_challenge_states: object  # challenge/failures.py
+    banner: BannerInterface
+    gin_log_file: Optional[TextIO] = None  # the JSON access log
+    server_log_file: Optional[TextIO] = None  # standalone: the fake nginx log
+    health: Optional[object] = None  # resilience.health.HealthRegistry
+    # the PoW verifier (challenge/verifier.py): kernel C on the card
+    challenge_verifier: Optional[object] = None
+    # the serving fast path's table (native/decisiontable.py); None = every
+    # request takes the chain
+    decision_table: Optional[object] = None
+    serve_stats: ServeFastpathStats = dataclasses.field(default_factory=ServeFastpathStats)
+
+
+_STANDALONE_KEY = "banjax_standalone_hdrs"
+
+
+def _hdr(request: web.Request, name: str) -> str:
+    """Read an X-* header, honoring the standalone middleware's injected
+    values (kept in the request's state dict — cheaper than cloning the
+    request per hit, which the reference does by mutating the shared
+    header map in place, http_server.go:137-169)."""
+    ov = request.get(_STANDALONE_KEY)
+    if ov is not None and name in ov:
+        return ov[name]
+    return request.headers.get(name, "")
+
+
+def _request_info(request: web.Request) -> RequestInfo:
+    # gin reads cookies through url.QueryUnescape (c.Cookie); a value whose
+    # unescape fails is treated as an absent cookie
+    cookies = {}
+    for name, value in request.cookies.items():
+        try:
+            cookies[name] = go_query_unescape(value)
+        except ValueError:
+            continue
+    return RequestInfo(
+        client_ip=_hdr(request, "X-Client-IP"),
+        requested_host=_hdr(request, "X-Requested-Host"),
+        requested_path=_hdr(request, "X-Requested-Path"),
+        client_user_agent=_hdr(request, "X-Client-User-Agent"),
+        method=request.method,
+        cookies=cookies,
+    )
+
+
+class CoalescedLog:
+    """Per-request log lines without a per-request flush.
+
+    Lines accumulate in a Python list; a single delayed callback (50 ms)
+    writes the batch with ONE os.write on the underlying fd, so a 1k-rps
+    burst pays ~20 syscalls/sec instead of 1k.  os.write(O_APPEND) emits
+    whole lines atomically, where a block-buffer flush could split a
+    line mid-byte for another writer of the same file.  Consumers (the
+    standalone tailer, integration tests) all poll with retry budgets far
+    above 50 ms; shutdown replays any tail through flush()."""
+
+    __slots__ = ("_f", "_lines", "_pending", "delay")
+
+    def __init__(self, f: TextIO, delay: float = 0.05):
+        self._f = f
+        self._lines: list = []
+        self._pending = False
+        self.delay = delay
+
+    def write(self, s: str) -> None:
+        self._lines.append(s)
+        if not self._pending:
+            self._pending = True
+            asyncio.get_running_loop().call_later(self.delay, self._flush)
+
+    def _flush(self) -> None:
+        self._pending = False
+        if not self._lines:
+            return
+        data = "".join(self._lines).encode("utf-8", "surrogatepass")
+        self._lines.clear()
+        try:
+            os.write(self._f.fileno(), data)
+        except (OSError, ValueError):
+            pass  # closed during shutdown
+
+
+def _to_web_response(resp: Response) -> web.Response:
+    out = web.Response(
+        status=resp.status, body=resp.body, content_type=resp.content_type
+    )
+    for k, v in resp.headers.items():
+        out.headers[k] = v
+    for c in resp.cookies:
+        # gin SetCookie url.QueryEscape's the value; the page JS
+        # decodeURIComponent's it back — keep the same wire encoding
+        out.set_cookie(
+            c.name, go_query_escape(c.value), max_age=c.max_age, path=c.path,
+            domain=c.domain or None, secure=c.secure, httponly=c.http_only,
+        )
+    return out
+
+
+def build_app(deps: ServerDeps, listen_host: str = LISTEN_HOST) -> web.Application:
+    """Build the aiohttp application (single process: every route is a
+    local handler)."""
+    middlewares = []
+
+    config0 = deps.config_holder.get()
+
+    coalesced_logs: list = []
+
+    # --- access log middleware (http_server.go:65-95) ---
+    if deps.gin_log_file is not None:
+        gin_log = CoalescedLog(deps.gin_log_file)
+        coalesced_logs.append(gin_log)
+
+        @web.middleware
+        async def access_log_middleware(request: web.Request, handler):
+            start = time.monotonic()
+            response = await handler(request)
+            latency_us = int((time.monotonic() - start) * 1e6)
+            line = {
+                "Time": time.strftime("%a, %d %b %Y %H:%M:%S %Z"),
+                "ClientIp": _hdr(request, "X-Client-IP"),
+                "ClientReqHost": _hdr(request, "X-Requested-Host"),
+                "ClientReqPath": _hdr(request, "X-Requested-Path"),
+                "Method": request.method,
+                "Path": request.path,
+                "Status": response.status,
+                "Latency": latency_us,
+            }
+            gin_log.write(json.dumps(line) + "\n")
+            return response
+
+        middlewares.append(access_log_middleware)
+
+    # --- fail-open recovery middleware (http_server.go:110-135) ---
+    @web.middleware
+    async def recovery_middleware(request: web.Request, handler):
+        try:
+            return await handler(request)
+        except web.HTTPException:
+            raise  # normal HTTP responses (404 etc.), not crashes
+        except Exception as e:  # noqa: BLE001 — this IS the crash handler
+            tb = traceback.extract_tb(e.__traceback__)
+            location = f"{tb[-1].filename}:{tb[-1].lineno}" if tb else "unknown"
+            log.error("handler panic: %s (%s)", e, location)
+            deps.serve_stats.note_fail_open()
+            # CR/LF-sanitized: exception text can embed client-controlled
+            # bytes, and an unsanitizable header value would make aiohttp
+            # raise INSIDE the crash handler — dropping the fail-open
+            # contract exactly when it matters
+            headers = {
+                "X-Banjax-Error": _clean_header(f"{e} ({location})"),
+                "X-Accel-Redirect": "@fail_open",
+            }
+            return web.Response(status=500, headers=headers)
+
+    middlewares.append(recovery_middleware)
+
+    # --- standalone-testing middleware (http_server.go:137-169) ---
+    if config0.standalone_testing:
+        log.info("!!! standalone-testing mode enabled. adding some X- headers here")
+
+        server_log = (
+            CoalescedLog(deps.server_log_file)
+            if deps.server_log_file is not None else None
+        )
+        if server_log is not None:
+            coalesced_logs.append(server_log)
+
+        @web.middleware
+        async def standalone_middleware(request: web.Request, handler):
+            # injected values ride the request's state dict (read back via
+            # _hdr) — same effect as the reference's in-place header-map
+            # mutation, without a per-request clone of the request object
+            hdrs = request.headers
+            client_ip = hdrs.get("X-Client-IP") or request.remote or "127.0.0.1"
+            request[_STANDALONE_KEY] = {
+                "X-Client-IP": client_ip,
+                "X-Requested-Host": request.host,
+                "X-Requested-Path": request.query.get("path", ""),
+                "X-Client-User-Agent": hdrs.get("X-Client-User-Agent")
+                or "mozilla",
+            }
+
+            # write the fake nginx banjax_format line so the log tailer has
+            # input: '$msec $remote_addr $request_method $host $request $ua'
+            if server_log is not None:
+                server_log.write(
+                    "%f %s %s %s %s %s HTTP/1.1 %s\n"
+                    % (
+                        float(int(time.time())),
+                        client_ip,
+                        request.method,
+                        request.host,
+                        request.method,
+                        request.query.get("path", ""),
+                        hdrs.get("User-Agent", ""),
+                    )
+                )
+            return await handler(request)
+
+        # outermost, so the injected X-* headers are visible to the access
+        # log (the reference mutates the shared header map in place)
+        middlewares.insert(0, standalone_middleware)
+
+    app = web.Application(middlewares=middlewares)
+
+    if coalesced_logs:
+        # drain any coalesced log tail when the server shuts down
+        async def _drain_logs(app_):
+            for lg in coalesced_logs:
+                lg._flush()
+
+        app.on_cleanup.append(_drain_logs)
+
+    # ---------------- routes ----------------
+
+    async def auth_request(request: web.Request) -> web.Response:
+        config = deps.config_holder.get()
+        state = ChainState(
+            config=config,
+            static_lists=deps.static_lists,
+            dynamic_lists=deps.dynamic_lists,
+            protected_paths=deps.protected_paths,
+            failed_challenge_states=deps.failed_challenge_states,
+            banner=deps.banner,
+            challenge_verifier=deps.challenge_verifier,
+        )
+        resp, result = decision_for_nginx(state, _request_info(request))
+        if config.debug:
+            log.info("decisionForNginx: %s", result.to_json())
+        elif result.decision_list_result != DecisionListResult.NO_MENTION:
+            log.info("decisionForNginx: %s", result.to_json())
+        return _to_web_response(resp)
+
+    async def info(request: web.Request) -> web.Response:
+        return web.json_response(
+            {"config_version": deps.config_holder.get().config_version}
+        )
+
+    async def decision_lists_route(request: web.Request) -> web.Response:
+        per_site, global_ = deps.static_lists.format_lists()
+        expiring = deps.dynamic_lists.format_ip_entries()
+
+        def fmt_ip_map(m):
+            return "".join(f"{ip}:\n\t{d}\n" for ip, d in m.items())
+
+        per_site_str = "".join(
+            f"{site}:\n" + "".join(f"\t{ip}:\n\t\t{d}\n" for ip, d in ips.items())
+            for site, ips in per_site.items()
+        )
+        expiring_str = "".join(
+            f"{ip}:\n\t{ed.domain} {ed.decision} until "
+            f"{time.strftime('%H:%M:%S', time.localtime(ed.expires))} "
+            f"(baskerville: {str(ed.from_baskerville).lower()})\n"
+            for ip, ed in expiring.items()
+        )
+        body = (
+            f"per_site:\n{per_site_str}\n\nglobal:\n{fmt_ip_map(global_)}\n\n"
+            f"expiring:\n{expiring_str}"
+        )
+        return web.Response(text=body)
+
+    async def rate_limit_states_route(request: web.Request) -> web.Response:
+        body = (
+            f"regexes:\n{deps.regex_states.format_states()}\n"
+            f"failed challenges:\n{deps.failed_challenge_states.format_states()}\n"
+        )
+        return web.Response(text=body)
+
+    async def is_banned(request: web.Request) -> web.Response:
+        ip = request.query.get("ip", "")
+        if not ip:
+            return web.json_response({"error": "ip query param is required"}, status=400)
+        try:
+            banned = deps.banner.ipset_list()
+        except Exception:  # noqa: BLE001 — reference ignores the error (banned, _ :=)
+            banned = None
+        expiring, ok = deps.dynamic_lists.check("", ip)
+        if not ok:
+            return web.json_response(
+                {"ip": ip, "banned": banned, "expiringDecision": None}
+            )
+        return web.json_response(
+            {
+                "ip": ip,
+                "banned": banned,
+                "expiringDecision": {
+                    "Decision": str(expiring.decision),
+                    "Expires": expiring.expires,
+                    "IpAddress": expiring.ip_address,
+                },
+            }
+        )
+
+    async def ipset_list_route(request: web.Request) -> web.Response:
+        try:
+            entries = deps.banner.ipset_list()
+        except Exception as e:  # noqa: BLE001 — surface as 500 JSON like the reference
+            return web.json_response({"error": str(e)}, status=500)
+        return web.json_response({"entries": entries})
+
+    async def banned_route(request: web.Request) -> web.Response:
+        domain = request.query.get("domain", "")
+        if not domain:
+            return web.json_response({"error": "domain query param is required"}, status=400)
+        entries = deps.dynamic_lists.check_by_domain(domain)
+        return web.json_response(
+            {
+                "domain": domain,
+                "entries": [
+                    {
+                        "ip": e.ip_or_session_id,
+                        "decision": e.decision,
+                        "expires": time.strftime(
+                            "%Y-%m-%dT%H:%M:%SZ", time.gmtime(e.expires)
+                        ),
+                        "from_baskerville": e.from_baskerville,
+                    }
+                    for e in entries
+                ],
+            }
+        )
+
+    async def unban(request: web.Request) -> web.Response:
+        config = deps.config_holder.get()
+        form = await request.post()
+        ip = str(form.get("ip", "")).strip()
+        if not ip:
+            return web.json_response({"error": "ip in post form is required"}, status=400)
+        expiring, ok = deps.dynamic_lists.check("", ip)
+        decision_str = str(expiring.decision) if ok and expiring else ""
+        if not ok or (expiring and expiring.decision == Decision.IPTABLES_BLOCK):
+            if not deps.banner.ipset_test(config, ip):
+                return web.json_response(
+                    {
+                        "ip": ip,
+                        "found_in_decision_list": ok,
+                        "decision": decision_str,
+                        "unban": False,
+                        "error": "ip is not banned",
+                    },
+                    status=400,
+                )
+            try:
+                deps.banner.ipset_del(ip)
+            except Exception as e:  # noqa: BLE001 — reference returns the error as 500 JSON
+                return web.json_response(
+                    {
+                        "ip": ip,
+                        "found_in_decision_list": ok,
+                        "decision": decision_str,
+                        "unban": False,
+                        "error": str(e),
+                    },
+                    status=500,
+                )
+        if ok:
+            deps.dynamic_lists.remove_by_ip(ip)
+        return web.json_response(
+            {
+                "ip": ip,
+                "found_in_decision_list": ok,
+                "decision": decision_str,
+                "unban": True,
+            }
+        )
+
+    def _admin_denied(request: web.Request) -> Optional[web.Response]:
+        """None when the admin request may proceed; a 401 otherwise.
+        Evaluated per request (not at build time) so a SIGHUP'd token
+        takes effect without a listener restart."""
+        if admin_auth_ok(deps.config_holder.get(), listen_host,
+                         request.headers.get("Authorization", "")):
+            return None
+        return web.json_response(
+            {"error": "unauthorized"}, status=401,
+            headers={"WWW-Authenticate": "Bearer"},
+        )
+
+    async def healthz(request: web.Request) -> web.Response:
+        denied = _admin_denied(request)
+        if denied is not None:
+            return denied
+        # the component health aggregate (resilience/health.py): 200 while
+        # serving is possible (HEALTHY or DEGRADED — degraded modes still
+        # answer traffic), 503 only when a component has FAILED
+        if deps.health is None:
+            return web.json_response({"status": "unknown", "components": {}})
+        snap = deps.health.snapshot()
+        status = 503 if snap["status"] == "failed" else 200
+        return web.json_response(snap, status=status)
+
+
+    app.router.add_route("*", "/auth_request", auth_request)
+    app.router.add_get("/info", info)
+    app.router.add_get("/healthz", healthz)
+    app.router.add_get("/decision_lists", decision_lists_route)
+    app.router.add_get("/rate_limit_states", rate_limit_states_route)
+    app.router.add_get("/is_banned", is_banned)
+    app.router.add_get("/ipset/list", ipset_list_route)
+    app.router.add_get("/banned", banned_route)
+    app.router.add_post("/unban", unban)
+
+    if config0.standalone_testing:
+        async def favicon(request: web.Request) -> web.Response:
+            return web.Response(text="")
+        app.router.add_get("/favicon.ico", favicon)
+
+    return app
+
+
+class ServerHandle:
+    """Shutdown handle over both layouts (aiohttp runner, fast-path asyncio
+    server, temp unix-socket dir); `port` is the bound TCP port."""
+
+    def __init__(self, port: int, runner=None, fast_server=None, tmpdir=None,
+                 fast_logs=()):
+        self.port = port
+        self.runner = runner
+        self.fast_server = fast_server
+        self._tmpdir = tmpdir
+        self._fast_logs = fast_logs
+
+    async def cleanup(self) -> None:
+        if self.fast_server is not None:
+            self.fast_server.close()
+            await self.fast_server.wait_closed()
+        for lg in self._fast_logs:
+            lg._flush()
+        if self.runner is not None:
+            await self.runner.cleanup()
+        if self._tmpdir is not None:
+            shutil.rmtree(self._tmpdir, ignore_errors=True)
+
+
+async def run_http_server(deps: ServerDeps, port: int = LISTEN_PORT) -> ServerHandle:
+    """Start the server; returns a handle for a clean shutdown. `port` 0
+    binds an ephemeral port (tests), read back as `handle.port`.
+
+    Layouts (config key `http_fast_path`, default on):
+
+      fast on  — the native protocol server (httpapi/fastserve.py) owns the
+        TCP port and answers the hot routes; the full aiohttp app listens
+        on a unix socket and receives everything else by raw proxy.
+      fast off — the aiohttp app serves the TCP port directly.
+    """
+    from banjax_tpu_torch.httpapi.fastserve import start_fast_server
+
+    config0 = deps.config_holder.get()
+    # bind address: empty = the reference's hard-coded loopback. A
+    # non-loopback listener without an admin token leaves /healthz open to
+    # the network — allowed, but loudly
+    listen_host = config0.http_listen_host or LISTEN_HOST
+    if not is_loopback_host(listen_host) and not config0.admin_token:
+        log.warning(
+            "http listener binds non-loopback %s with no admin_token: the "
+            "admin surface (/healthz) is open to the network", listen_host,
+        )
+
+    if not config0.http_fast_path:
+        app = build_app(deps, listen_host=listen_host)
+        runner = web.AppRunner(app, access_log=None)
+        await runner.setup()
+        await web.TCPSite(runner, listen_host, port).start()
+        bound = next(a[1] for a in runner.addresses if isinstance(a, tuple))
+        log.info("http server listening on %s:%s", listen_host, bound)
+        return ServerHandle(bound, runner=runner)
+
+    gin_log = CoalescedLog(deps.gin_log_file) if deps.gin_log_file is not None else None
+    server_log = (
+        CoalescedLog(deps.server_log_file)
+        if (config0.standalone_testing and deps.server_log_file is not None)
+        else None
+    )
+    fast_logs = [lg for lg in (gin_log, server_log) if lg is not None]
+    # the full aiohttp app on a unix socket (the fast server's cold-route
+    # upstream), the fast server on the TCP port
+    tmpdir = tempfile.mkdtemp(prefix="banjax-http-")
+    unix_path = os.path.join(tmpdir, "app.sock")
+    app = build_app(deps, listen_host=listen_host)
+    runner = web.AppRunner(app, access_log=None)
+    await runner.setup()
+    await web.UnixSite(runner, unix_path).start()
+    fast_server = await start_fast_server(
+        deps, unix_path, listen_host, port, coalesced_gin=gin_log,
+        coalesced_server=server_log,
+    )
+    bound = fast_server.sockets[0].getsockname()[1]
+    log.info("fast http server on %s:%s (aiohttp upstream %s)", listen_host, bound, unix_path)
+    return ServerHandle(bound, runner=runner, fast_server=fast_server, tmpdir=tmpdir,
+                        fast_logs=fast_logs)

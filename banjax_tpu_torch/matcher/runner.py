@@ -120,7 +120,7 @@ class TorchMatcher(Matcher):
         # native batch parse: built and loaded here, so a matcher that asks
         # for it either has it or fails to start. The scratch buffers are
         # reused batch after batch (each batch is consumed before the next
-        # parse); the allowlist cache holds one static-lists object's
+        # parse); the allowlist cache holds one static-lists generation's
         # results per distinct (host, ip)
         self._native = config.matcher_native_parse
         self._parse_scratch = self._dedup_scratch = None
@@ -203,6 +203,20 @@ class TorchMatcher(Matcher):
                 self.compiled.n_rules, traffic_sketch=self.traffic_sketch,
                 clock=self.clock,
             )
+
+    def close(self) -> None:
+        """Release what the matcher holds — the native slot manager, the warm
+        tier's mapping and every tensor on the device — so that a reload
+        does not hold two matchers' state. The matcher is unusable
+        afterwards; the caller drops its reference as well."""
+        if self.device_windows is not None:
+            self.device_windows.close()
+        self.device_windows = None
+        self._fw_pipeline = None
+        self._prefilter = None
+        self.traffic_sketch = None
+        self._nfa = None
+        self._active_table = None
 
     # ---- Matcher API ----
 
@@ -331,11 +345,12 @@ class TorchMatcher(Matcher):
                 if host_inv[k] == len(hosts_u):
                     hosts_u.append(p.host)
 
-        # allowlist per distinct (host, ip), cached for this static-lists
-        # object (the port's lists are built once and never change)
-        if self._allow_cache_snap is not self.decision_lists or len(self._allow_cache) > 500_000:
+        # allowlist per distinct (host, ip), cached until the static lists
+        # change (a reload bumps their generation)
+        snap = (self.decision_lists, self.decision_lists.generation)
+        if self._allow_cache_snap != snap or len(self._allow_cache) > 500_000:
             self._allow_cache = {}
-            self._allow_cache_snap = self.decision_lists
+            self._allow_cache_snap = snap
         if self.decision_lists.has_any_allow_entries():
             n_ip = max(1, len(ips_u))
             upair, upair_inv = np.unique(host_inv * n_ip + ip_inv, return_inverse=True)

@@ -350,6 +350,19 @@ class DeviceWindows:
         self._shadow: "Dict[str, OrderedDict]" = {}
         self._state = DeviceWindowState.zeros(capacity, self.n_rules, self.device)
 
+    def close(self) -> None:
+        """Release the native slot manager, the warm tier's mapping and the
+        state on the device; the object is unusable afterwards."""
+        with self._lock:
+            if self._sm is not None:
+                self._sm.close()
+                self._sm = None
+            if self._warm is not None:
+                self._warm.close()
+                self._warm = None
+            self._state = None
+            self._limits = self._iv_s = self._iv_ns = None
+
     # ---- slot management (host) ----
 
     def release_pins(self, slot_ids) -> None:

@@ -51,10 +51,11 @@ FASTPARSE = HostLibrary("fastparse", "fastparse.c", {
 
 
 def libraries() -> List[HostLibrary]:
-    """The three host libraries of the matcher's host tier."""
-    from banjax_tpu_torch.native import shm, slotmgr
+    """The host libraries: the matcher's host tier (parse, slot manager,
+    warm tier) and the serving fast path's decision table."""
+    from banjax_tpu_torch.native import decisiontable, shm, slotmgr
 
-    return [FASTPARSE, slotmgr.SLOTMGR, shm.SHMSTATE]
+    return [FASTPARSE, slotmgr.SLOTMGR, shm.SHMSTATE, decisiontable.DECISIONTABLE]
 
 
 def _P(a: np.ndarray, t):

@@ -1,4 +1,5 @@
-"""Go net/url QueryUnescape (a copy of `banjax_tpu/utils/goquery.py`'s).
+"""Go net/url QueryUnescape and QueryEscape (copies of
+`banjax_tpu/utils/goquery.py`'s).
 
 The reference's cookie round trip depends on gin's exact behavior: cookie
 values are QueryEscape'd when set and QueryUnescape'd when read (which turns
@@ -10,6 +11,8 @@ ports raise like Go does.
 """
 
 from __future__ import annotations
+
+from urllib.parse import quote_plus
 
 _HEX = "0123456789abcdefABCDEF"
 
@@ -36,3 +39,11 @@ def go_query_unescape(s: str) -> str:
             out.extend(c.encode("utf-8"))
             i += 1
     return out.decode("utf-8", errors="surrogateescape")
+
+
+def go_query_escape(s: str) -> str:
+    """url.QueryEscape: unreserved kept, space → '+', the rest %XX.
+    urllib's quote_plus over the utf-8 bytes is byte for byte the same
+    (the same always-safe set ALPHA/DIGIT/"-_.~", '+' for space,
+    uppercase hex)."""
+    return quote_plus(s.encode("utf-8", errors="surrogateescape"))

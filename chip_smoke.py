@@ -45,6 +45,20 @@ Banner. A prefix of that stream also runs through a chain on the CPU
 (plain versions); responses, result records, ban logs and state must be
 identical.
 
+Then the service around both paths (`service`): `BanjaxApp` from the
+deploy file, its log paths in a temp dir under `build/`, on an
+ephemeral port, with the rules and cuts of `tiering`. The tailer follows
+16 appended writes of 4,096 lines (the offenders' lines among them, one
+rotation after the 8th); then 32 keep-alive clients send `/auth_request`
+for the log path's bans (the fast path's table hits), cookieless
+challengers and solved cookies (the chain, kernel C); then a reload
+(the matcher is closed and rebuilt: device memory must come back within
+5 %). The ban log must equal `TorchMatcher.consume_lines` on the same
+batches, and a 1,024-request prefix replayed into an app on the CPU
+must answer identically; no fast-path fault, fail-open answer or tailer
+error may show. It prints lines/s through the tailer, line → ban-log
+latency, requests/s and the launches of kernels A, B and C.
+
 The kernel phases time each shape three ways: `ms` (CUDA events around
 20 back-to-back wrapper calls; the host's enqueue bounds it when slower
 than the card, and `host_enqueue_us` says so), `device_ms` (the same 20
@@ -123,6 +137,26 @@ TIERING = dict(
     cross_check_capacity=2048,
     sketch_width=8192,
     hll_p=12,
+)
+# the service around both paths: BanjaxApp from the deploy file, tailing
+# 16 writes of 4,096 lines (the offenders' 40 x 40 lines among them, one
+# rotation after the 8th write), then /auth_request from 32 keep-alive
+# clients: 2,048 requests from log-path blocks (fast-path hits), one from
+# each log-path challenge, 2,048 cookieless challengers and 2,048 solved
+# cookies (the chain, kernel C); the rules and cuts of `tiering`
+SERVICE = dict(
+    n_rules=1000,
+    batch_lines=4096,
+    capacity=65536,
+    warm_capacity=131_072,
+    writes=16,
+    rotate_after=8,
+    n_offenders=40,
+    offender_hits=40,
+    threads=32,
+    per_kind=2048,
+    cross_check=1024,      # requests replayed into an app on the CPU
+    warmup_lines=64,
 )
 SHA_HOST = "sha.example"   # the one host in sitewide_sha_inv_list (block)
 LOG_HOST = "example.org"
@@ -1399,6 +1433,409 @@ def run_challenge(dev, challengers, solved, under, expired, torn, wrong_binding,
     }]
 
 
+# ------------------------------------------------------------- the service
+
+
+class HttpClient:
+    """One keep-alive HTTP/1.1 connection; `get` returns the raw response
+    (head and body, read by its Content-Length)."""
+
+    def __init__(self, port: int):
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+        self.buf = b""
+
+    def get(self, ip: str, host: str, cookie=None) -> bytes:
+        head = (f"GET /auth_request HTTP/1.1\r\nHost: {host}\r\nX-Client-IP: {ip}\r\n"
+                f"X-Requested-Host: {host}\r\nX-Requested-Path: /\r\n"
+                "X-Client-User-Agent: Mozilla/5.0\r\n")
+        if cookie is not None:
+            head += f"Cookie: deflect_challenge3={cookie}\r\n"
+        self.sock.sendall((head + "\r\n").encode())
+        while b"\r\n\r\n" not in self.buf:
+            self._recv()
+        end = self.buf.index(b"\r\n\r\n") + 4
+        clen = 0
+        for line in self.buf[:end].split(b"\r\n"):
+            if line.lower().startswith(b"content-length:"):
+                clen = int(line.split(b":", 1)[1])
+        while len(self.buf) < end + clen:
+            self._recv()
+        raw, self.buf = self.buf[: end + clen], self.buf[end + clen:]
+        return raw
+
+    def _recv(self) -> None:
+        chunk = self.sock.recv(1 << 16)
+        if not chunk:
+            raise RuntimeError("the server closed a keep-alive connection")
+        self.buf += chunk
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+# fresh session and challenge randomness, and the cookies' expiry
+# (tests/test_torch_serve.py masks the same way)
+RESPONSE_MASKS = (
+    (rb"(X-Deflect-Session: )(\S+)", rb"\1MASKED"),
+    (rb"(deflect_session=)([^;\r\n]+)", rb"\1MASKED"),
+    (rb"(deflect_challenge3=)([^;\r\n]+)", rb"\1MASKED"),
+    (rb"[A-Za-z0-9+/=]{40,}", rb"MASKEDB64"),
+)
+
+
+def masked(raw: bytes) -> bytes:
+    import re
+
+    for pat, repl in RESPONSE_MASKS:
+        raw = re.sub(pat, repl, raw)
+    return raw
+
+
+def service_config(workdir: str, patterns, capacity: int, warm_capacity: int,
+                   batch_lines: int, name: str) -> str:
+    """The deploy file with its log paths moved into `workdir`, hmac_secret
+    set and SHA_HOST in sitewide_sha_inv_list (as `challenge_config`), the
+    generated rules, and the cuts of `tiering` (slots, warm records);
+    returns the path of the YAML written."""
+    import os
+
+    import yaml
+
+    from banjax_tpu_torch import workload
+
+    with open("deploy/banjax-config.yaml") as f:
+        raw = yaml.safe_load(f)
+    raw.update(
+        regexes_with_rates=yaml.safe_load(
+            workload.rules_config(patterns, seed=SEED))["regexes_with_rates"],
+        matcher_window_capacity=capacity, warm_tier_capacity=warm_capacity,
+        matcher_batch_lines=batch_lines,
+        server_log_file=os.path.join(workdir, name + ".log"),
+        banning_log_file=os.path.join(workdir, name + ".bans"),
+        hmac_secret="chip-smoke-secret", sitewide_sha_inv_list={SHA_HOST: "block"},
+        standalone_testing=False,
+    )
+    open(raw["server_log_file"], "a").close()
+    path = os.path.join(workdir, name + ".yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+def percentile(xs, q: float):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+
+def run_service(dev, n_rules, batch_lines, capacity, warm_capacity, writes, rotate_after,
+                n_offenders, offender_hits, threads, per_kind, cross_check, warmup_lines,
+                alone_requests=256, timeout_s=300.0) -> dict:
+    """The service on device `dev`: `BanjaxApp` from the deploy file tails
+    an access log (the writes, one rotation), bans into its ban log and
+    decision table, and answers `/auth_request` on an ephemeral port to
+    `threads` keep-alive clients; then a reload; then the same lines
+    through `TorchMatcher.consume_lines` directly, and a prefix of the
+    requests replayed into a `device="cpu"` app. Returns the phase's
+    launches of kernels A, B and C. Raises on any failed check."""
+    import os
+    import tempfile
+    import weakref
+
+    import torch
+
+    from banjax_tpu_torch import workload
+    from banjax_tpu_torch.cli import BanjaxApp, build_matcher
+    from banjax_tpu_torch.crypto.challenge import new_challenge_cookie_at
+    from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
+    from banjax_tpu_torch.decisions.model import Decision
+    from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
+    from banjax_tpu_torch.effectors.banner import Banner
+    from banjax_tpu_torch.matcher.kernels import fused_match_window as fmw
+    from banjax_tpu_torch.matcher.kernels import nfa_match, pow_verify
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    workdir_obj = tempfile.TemporaryDirectory(prefix="service-", dir=os.path.join(here, "build"))
+    workdir = workdir_obj.name
+    patterns = workload.generate_rules(n_rules, seed=SEED)
+    cfg_path = service_config(workdir, patterns, capacity, warm_capacity, batch_lines, "card")
+    log_path = os.path.join(workdir, "card.log")
+
+    # the stream: generated traffic with the offenders' lines among it; each
+    # write is stamped with the second before its append
+    stream = workload.access_log(writes * batch_lines, patterns, time.time(), seed=SEED + 1,
+                                 n_offenders=n_offenders, offender_hits=offender_hits)
+    stream = [ln.split(" ", 1)[1] for ln in stream]  # "<ip> <rest>"
+    offenders = {f"203.0.{k // 250}.{k % 250 + 1}" for k in range(n_offenders)}
+    warm = [f"104.0.0.{j % 250 + 1} GET {LOG_HOST} GET /warm/{j} HTTP/1.1 Mozilla/5.0 -"
+            for j in range(warmup_lines)]
+
+    def stamped(part):
+        t = time.time()
+        return [f"{t - 1 + j / len(part):.6f} {x}" for j, x in enumerate(part)]
+
+    def wait(cond, what):
+        deadline = time.monotonic() + timeout_s
+        while not cond():
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"timed out waiting for {what}")
+            time.sleep(0.0005)
+
+    def append(lines):
+        with open(log_path, "a") as f:
+            f.write("\n".join(lines) + "\n")
+
+    nfa_match.KERNEL.launches = fmw.KERNEL.launches = pow_verify.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    app = BanjaxApp(cfg_path, device=dev)
+    # every batch the tailer hands over: its lines, the clock then, the
+    # write it came from, when it was consumed, and the bans it made
+    batches, current = [], [None]
+    inner = app.tailer.on_lines
+
+    def recording(batch):
+        t_in, b0 = time.time(), len(app.banner.bans)
+        inner(batch)
+        batches.append((batch, t_in, current[0], time.time(), app.banner.bans[b0:]))
+
+    app.tailer.on_lines = recording
+    app.start_background(port=0)
+    setup_s = time.perf_counter() - t0
+    cpu_app = None
+    try:
+        check(app.port not in (None, 0, 8081), "the app listens on an ephemeral port")
+        wait(app.tailer.opened.is_set, "the tailer to open the log")
+        consumed = lambda: sum(len(b[0]) for b in batches)  # noqa: E731
+
+        # warm-up: the first batch builds the matcher on the tailer thread
+        t_w = time.perf_counter()
+        append(stamped(warm))
+        wait(lambda: consumed() >= len(warm), "the warm-up batch")
+        first_build_s = time.perf_counter() - t_w
+
+        # ---- the log path: the writes, one rotation ----
+        appended_at = {}
+        done = len(warm)
+        app._matcher.clock.reset()
+        t_log = time.perf_counter()
+        for k in range(writes):
+            lines = stamped(stream[k * batch_lines : (k + 1) * batch_lines])
+            current[0] = k
+            appended_at[k] = time.time()
+            append(lines)
+            done += len(lines)
+            wait(lambda: consumed() >= done, f"write {k + 1}")
+            if k + 1 == rotate_after:
+                os.replace(log_path, log_path + ".1")
+                open(log_path, "w").close()
+        log_wall = time.perf_counter() - t_log
+        log_batches = list(batches)
+        stages = stage_us(app._matcher, writes * batch_lines)
+        # each write: append -> first read, each batch's consume, append -> done
+        first_read, write_ms = {}, {}
+        for _, t_in, k, t_done, _ in log_batches:
+            if k is not None:
+                first_read.setdefault(k, t_in - appended_at[k])
+                write_ms[k] = 1e3 * (t_done - appended_at[k])
+        consume_ms = [1e3 * (t_done - t_in) for _, t_in, k, t_done, _ in log_batches if k is not None]
+        with open(app.banner._ban_log.name) as f:
+            app_ban_log = f.read()
+        latency = {}
+        for _, _, k, t_done, bans in log_batches:
+            for ip, _, _ in bans:
+                if ip in offenders and ip not in latency and k is not None:
+                    latency[ip] = t_done - appended_at[k]
+        check(app.tailer.errors == 0, f"no tailer error ({app.tailer.last_error!r})")
+        check(len(latency) == len(offenders), "every offender was banned by the log path")
+
+        # ---- /auth_request: log-path bans (fast-path hits), cookieless
+        # challengers and solved cookies (the chain, kernel C) ----
+        entries = app.dynamic_lists.format_ip_entries()
+        blocked = sorted(ip for ip, e in entries.items()
+                         if e.decision in (Decision.NGINX_BLOCK, Decision.IPTABLES_BLOCK))
+        challenged = sorted(ip for ip, e in entries.items() if e.decision == Decision.CHALLENGE)
+        check(blocked and challenged, "the log path both blocked and challenged")
+        now = int(time.time())
+        secret, bits = app.config_holder.get().hmac_secret, app.config_holder.get().sha_inv_expected_zero_bits
+        t_s = time.perf_counter()
+        solved = []
+        for j in range(per_kind):
+            ip = f"106.{j >> 16}.{(j >> 8) & 255}.{j & 255}"
+            solved.append((ip, SHA_HOST, solve(new_challenge_cookie_at(secret, now + 3600, ip), bits), 200))
+        solve_s = time.perf_counter() - t_s
+        kinds = [
+            [(blocked[j % len(blocked)], LOG_HOST, None, 403) for j in range(per_kind)],
+            [(ip, LOG_HOST, None, 429) for ip in challenged],
+            [(f"105.{j >> 16}.{(j >> 8) & 255}.{j & 255}", SHA_HOST, None, 429)
+             for j in range(per_kind)],
+            solved,
+        ]
+        flat = [kind[j] for j in range(max(map(len, kinds))) for kind in kinds if j < len(kind)]
+        thread_of, per_thread = {}, [[] for _ in range(threads)]
+        for i, req in enumerate(flat):
+            per_thread[thread_of.setdefault(req[0], len(thread_of) % threads)].append((i, req))
+        answers = [None] * len(flat)
+        errors = []
+
+        def client(reqs):
+            try:
+                c = HttpClient(app.port)
+                try:
+                    for i, (ip, host, cookie, _) in reqs:
+                        answers[i] = c.get(ip, host, cookie)
+                finally:
+                    c.close()
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        workers = [threading.Thread(target=client, args=(r,)) for r in per_thread]
+        stats0 = app.serve_stats.snapshot()
+        t_r = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout_s)
+        req_wall = time.perf_counter() - t_r
+        check(not errors and all(not w.is_alive() for w in workers), f"no client failed: {errors[:3]}")
+        stats = app.serve_stats.snapshot()
+        statuses = [int(a.split(b" ", 2)[1]) for a in answers]
+        wrong = [(flat[i][:2], statuses[i], flat[i][3]) for i in range(len(flat))
+                 if statuses[i] != flat[i][3]]
+        hits = stats["hits_total"] - stats0["hits_total"]
+        misses = stats["misses_total"] - stats0["misses_total"]
+
+        # one client alone, request by request: where a request's time goes
+        alone = {}
+        c = HttpClient(app.port)
+        try:
+            for kind, reqs in (
+                ("fast_path_block", [(blocked[j % len(blocked)], LOG_HOST, None)
+                                     for j in range(alone_requests)]),
+                ("chain_cookieless", [(f"107.0.{j >> 8}.{j & 255}", SHA_HOST, None)
+                                      for j in range(alone_requests)]),
+                ("chain_solved_kernel_c", [
+                    (ip, SHA_HOST, solve(new_challenge_cookie_at(secret, now + 3600, ip), bits))
+                    for ip in (f"108.0.{j >> 8}.{j & 255}" for j in range(alone_requests))]),
+            ):
+                us = []
+                for ip, host, cookie in reqs:
+                    t_q = time.perf_counter()
+                    c.get(ip, host, cookie)
+                    us.append(1e6 * (time.perf_counter() - t_q))
+                alone[kind] = {"p50_us": percentile(us, 0.5), "p99_us": percentile(us, 0.99)}
+        finally:
+            c.close()
+
+        # ---- reload: the matcher is closed, then rebuilt on the next batch ----
+        mem = {}
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            mem["before_reload"] = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        gen0 = app._matcher_generation
+        old_matcher = weakref.ref(app._matcher)
+        app.reload()
+        current[0] = None
+        target = consumed() + batch_lines
+        append(stamped(stream[:batch_lines]))
+        wait(lambda: consumed() >= target, "the batch after the reload")
+        check(app._matcher_generation == gen0 + 1, "the reload rebuilt the matcher")
+        check(old_matcher() is None, "the old matcher was released before the new one")
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            mem["after_reload"] = torch.cuda.memory_allocated(dev)
+            mem["peak_across_reload"] = torch.cuda.max_memory_allocated(dev)
+        launches = {"nfa_match": nfa_match.KERNEL.launches, "window_scan": fmw.KERNEL.launches,
+                    "pow_verify": pow_verify.KERNEL.launches}
+        check(app.tailer.errors == 0, f"no tailer error ({app.tailer.last_error!r})")
+        tailer_errors = app.tailer.errors
+    finally:
+        app.stop_background()
+
+    # ---- the same batches through TorchMatcher.consume_lines directly ----
+    t_d = time.perf_counter()
+    cfg = app.config_holder.get()
+    direct_log = io.StringIO()
+    direct = build_matcher(cfg, Banner(DynamicDecisionLists(start_sweeper=False), direct_log,
+                                       io.StringIO()), StaticDecisionLists(cfg), device=dev)
+    for batch, t_in, _, _, _ in log_batches:
+        direct.consume_lines(batch, now_unix=t_in)
+    direct.close()
+    del direct
+    direct_s = time.perf_counter() - t_d
+
+    # ---- a prefix of the requests, replayed into an app on the CPU ----
+    t_c = time.perf_counter()
+    cpu_app = BanjaxApp(service_config(workdir, patterns, capacity, warm_capacity, batch_lines,
+                                       "cpu"), device="cpu")
+    try:
+        for ip, e in entries.items():
+            cpu_app.dynamic_lists.update(ip, e.expires, e.decision, e.from_baskerville, e.domain)
+        cpu_app.start_background(port=0)
+        check(cpu_app.port not in (None, 0, 8081, app.port), "the CPU app has its own port")
+        c = HttpClient(cpu_app.port)
+        try:
+            cpu_answers = [c.get(ip, host, cookie) for ip, host, cookie, _ in flat[:cross_check]]
+        finally:
+            c.close()
+        cpu_stats = cpu_app.serve_stats.snapshot()
+    finally:
+        cpu_app.stop_background()
+    replay_diff = [i for i in range(len(cpu_answers))
+                   if masked(cpu_answers[i]) != masked(answers[i])]
+    cross_s = time.perf_counter() - t_c
+    workdir_obj.cleanup()
+
+    lat = sorted(latency.values())
+    emit({
+        "phase": "service",
+        "config": "deploy/banjax-config.yaml (paths in a temp dir, standalone_testing false) "
+                  f"with {n_rules} generated rules, {capacity} slots, {warm_capacity} warm records, "
+                  f"hmac_secret set, sitewide_sha_inv_list {{{SHA_HOST}: block}}",
+        "setup_s": setup_s, "first_batch_with_matcher_build_s": first_build_s,
+        "writes": writes, "lines": writes * batch_lines, "rotation_after_write": rotate_after,
+        "tailer_batches": len(log_batches) - 1, "log_wall_s": log_wall,
+        "lines_per_s": writes * batch_lines / log_wall,
+        "append_to_first_read_ms": {"p50": 1e3 * percentile(list(first_read.values()), 0.5),
+                                    "max": 1e3 * max(first_read.values())},
+        "consume_ms_per_batch": {"p50": percentile(consume_ms, 0.5), "max": max(consume_ms)},
+        "append_to_consumed_ms_by_write": [write_ms[k] for k in sorted(write_ms)],
+        "host_us_per_line_by_stage": stages,
+        "offenders": len(offenders), "line_to_ban_ms": {
+            "p50": 1e3 * percentile(lat, 0.5), "p99": 1e3 * percentile(lat, 0.99),
+            "min": 1e3 * lat[0], "max": 1e3 * lat[-1]},
+        "ban_log_lines": app_ban_log.count("\n"), "direct_ban_log_identical":
+            direct_log.getvalue() == app_ban_log, "direct_replay_s": direct_s,
+        "requests": len(flat), "threads": threads, "solve_s": solve_s,
+        "mix": {"log_path_blocked": per_kind, "log_path_challenged": len(challenged),
+                "cookieless_challengers": per_kind, "solved_cookies": per_kind},
+        "request_wall_s": req_wall, "requests_per_s": len(flat) / req_wall,
+        "one_client_alone": alone,
+        "wrong_statuses": len(wrong), "first_wrong": wrong[:3],
+        "fastpath_hits": hits, "fastpath_misses": misses, "serve_stats": stats,
+        "launches": launches, "device_memory_bytes": mem, "tailer_errors": tailer_errors,
+        "cpu_replay": {"requests": len(cpu_answers), "differing": len(replay_diff),
+                       "first_differing": replay_diff[:3], "seconds": cross_s,
+                       "fastpath_hits": cpu_stats["hits_total"]},
+    })
+    check(not wrong, "every response has its expected status")
+    check(direct_log.getvalue() == app_ban_log and app_ban_log.count("\n") > 0,
+          "the tailed ban log equals TorchMatcher.consume_lines on the same lines")
+    check(hits == per_kind + len(challenged) and misses == 2 * per_kind,
+          "the log-path bans were served by the fast path, the rest by the chain")
+    check(stats["faults_total"] == 0 and stats["fail_open_total"] == 0
+          and stats["mirror_errors_total"] == 0, "no fast-path fault, fail-open or mirror error")
+    check(dev.type != "cuda" or all(v > 0 for v in launches.values()),
+          "kernels A, B and C launched in the service phase")
+    check(dev.type != "cuda" or abs(mem["after_reload"] - mem["before_reload"])
+          <= 0.05 * mem["before_reload"], "device memory is back after the reload")
+    check(not replay_diff and cpu_stats["faults_total"] == cpu_stats["fail_open_total"] == 0,
+          "the CPU app answers the prefix identically")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1419,6 +1856,13 @@ def main() -> int:
         k["launches_by_path"] = {"main_path": main, "tiering": tier_launches[k["name"]]}
         k["launches"] = main + tier_launches[k["name"]]
     kernels += run_challenge(dev, **CHALLENGE, load=load)
+    t0 = time.perf_counter()
+    service = run_service(dev, **SERVICE)
+    emit({"phase": "service_seconds", "seconds": time.perf_counter() - t0})
+    for k in kernels:
+        k.setdefault("launches_by_path", {"challenge_path": k["launches"]})
+        k["launches_by_path"]["service"] = service[k["name"]]
+        k["launches"] += service[k["name"]]
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {
