@@ -1,8 +1,8 @@
 """Entry points of the port: `build_matcher`, `build_decision_chain` and
 the single-process service around both, `BanjaxApp` (a copy of
-`banjax_tpu/cli.py`'s, without the fabric, the pipeline, Kafka, the
-metrics reporter, multi-process workers, the flight recorder and the
-SLO engine, none of which the port has).
+`banjax_tpu/cli.py`'s, without the fabric, Kafka, the metrics reporter,
+multi-process workers, the flight recorder and the SLO engine, none of
+which the port has).
 
 Reference behavior (Go banjax): banjax.go:66-275 — parse the three flags,
 build the shared state, start the HTTP server and the log tailer,
@@ -13,9 +13,13 @@ reload the config on SIGHUP and stop on SIGINT/SIGTERM.
 The app runs on the card: the tailer feeds `TorchMatcher` (kernels A and
 B), whose bans go to the ban-log files and, through the dynamic lists,
 into the serving fast path's decision table; `/auth_request` answers
-from that table or through the chain, whose PoW check is kernel C. Pass
-`device="cpu"` to `BanjaxApp` to run the plain PyTorch versions on the
-host, as the tests do.
+from that table or through the chain, whose PoW check is kernel C. With
+`pipeline_enabled: true` the tailer submits to the streaming pipeline
+(`pipeline/scheduler.py`: encode, device and drain threads) instead of
+consuming each batch itself. The config's `failpoints` spec is armed at
+start and re-armed on a reload that changes it. Pass `device="cpu"` to
+`BanjaxApp` to run the plain PyTorch versions on the host, as the tests
+do.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import logging
 import signal
 import sys
 import threading
+import time
 from typing import Optional
 
 from banjax_tpu_torch.device import DeviceLike
@@ -34,10 +39,11 @@ from banjax_tpu_torch.device import DeviceLike
 log = logging.getLogger(__name__)
 
 
-def build_matcher(config, banner, static_lists, device: DeviceLike = None):
+def build_matcher(config, banner, static_lists, device: DeviceLike = None, health=None):
     """The Matcher seam flag: `matcher: tpu` selects the device matcher,
     which the port runs on the card (or on the CPU when `device="cpu"`).
-    The host reference matcher (`matcher: cpu`) stays in the JAX package."""
+    The host reference matcher (`matcher: cpu`) stays in the JAX package.
+    `health` (a HealthRegistry) gets the matcher's "matcher" component."""
     if config.matcher != "tpu":
         raise ValueError(
             f"matcher: {config.matcher} is the host reference matcher; the "
@@ -45,7 +51,7 @@ def build_matcher(config, banner, static_lists, device: DeviceLike = None):
         )
     from banjax_tpu_torch.matcher.runner import TorchMatcher
 
-    return TorchMatcher(config, banner, static_lists, device=device)
+    return TorchMatcher(config, banner, static_lists, device=device, health=health)
 
 
 def build_decision_chain(config, banner, static_lists, device: DeviceLike = None):
@@ -119,6 +125,7 @@ class BanjaxApp:
         from banjax_tpu_torch.effectors.banner import Banner
         from banjax_tpu_torch.httpapi.serve_stats import ServeFastpathStats
         from banjax_tpu_torch.ingest.tailer import LogTailer
+        from banjax_tpu_torch.resilience import failpoints
         from banjax_tpu_torch.resilience.health import HealthRegistry
 
         self.device = resolve_device(device)
@@ -126,6 +133,9 @@ class BanjaxApp:
         self.config_holder = ConfigHolder(config_file, standalone_testing, debug)
         config = self.config_holder.get()
         self.health = HealthRegistry()
+        self._failpoints_spec = config.failpoints
+        if self._failpoints_spec:
+            failpoints.arm_from_spec(self._failpoints_spec)
         self.static_lists = StaticDecisionLists(config)
         self.dynamic_lists = DynamicDecisionLists()
         self.serve_stats = ServeFastpathStats()
@@ -156,6 +166,16 @@ class BanjaxApp:
 
         self._matcher = None
         self._matcher_generation = -1
+        self._matcher_lock = threading.Lock()
+        # the streaming pipeline between the tailer and the matcher
+        self.pipeline = None
+        if config.pipeline_enabled:
+            from banjax_tpu_torch.pipeline import PipelineScheduler
+
+            self.pipeline = PipelineScheduler.from_config(
+                lambda: self._current_matcher()[1], config,
+                health=self.health.register("pipeline"),
+            )
         self.tailer = LogTailer(
             config.server_log_file, self._consume_lines,
             health=self.health.register("tailer", stale_after=60.0),
@@ -190,25 +210,45 @@ class BanjaxApp:
         self.static_lists.update_from_config(new_config)
         self.dynamic_lists.clear()
         self.protected_paths.update_from_config(new_config)
+        # re-arm the failpoints only when the spec changed: a reload for
+        # other keys keeps what /debug/failpoints armed
+        from banjax_tpu_torch.resilience import failpoints
+
+        if new_config.failpoints != self._failpoints_spec:
+            failpoints.disarm()
+            if new_config.failpoints:
+                failpoints.arm_from_spec(new_config.failpoints)
+            self._failpoints_spec = new_config.failpoints
 
     def _current_matcher(self):
         """The matcher of the current config generation, rebuilt when the
         generation moves (regex_rate_limiter.go:59). The old matcher is
         closed and dropped before the new one is built, so the card never
-        holds two matchers' state."""
-        cfg = self.config_holder.get()
-        generation = self.config_holder.generation
-        if self._matcher_generation != generation:
-            old, self._matcher = self._matcher, None
-            if old is not None:
-                old.close()
-                del old
-                gc.collect()
-            self._matcher = build_matcher(cfg, self.banner, self.static_lists, self.device)
-            self._matcher_generation = generation
-        return cfg, self._matcher
+        holds two matchers' state; with the pipeline on, the rebuild first
+        waits until no batch is in flight, so it happens between batches."""
+        with self._matcher_lock:
+            cfg = self.config_holder.get()
+            generation = self.config_holder.generation
+            if self._matcher_generation != generation:
+                if self._matcher is not None and self.pipeline is not None:
+                    if not self.pipeline.wait_idle():
+                        raise RuntimeError("the pipeline did not drain before a matcher rebuild")
+                old, self._matcher = self._matcher, None
+                if old is not None:
+                    old.close()
+                    del old
+                    gc.collect()
+                self._matcher = build_matcher(cfg, self.banner, self.static_lists, self.device,
+                                              health=self.health)
+                self._matcher_generation = generation
+            return cfg, self._matcher
 
     def _consume_lines(self, lines):
+        if self.pipeline is not None:
+            # asynchronous: the drain stage applies the results; submit
+            # applies the bounded backpressure to the tailer
+            self.pipeline.submit(lines, t_read=time.monotonic())
+            return None
         cfg, matcher = self._current_matcher()
         results = matcher.consume_lines(lines)
         if cfg.debug:
@@ -217,7 +257,10 @@ class BanjaxApp:
         return results  # the tailer ignores this; tests read it
 
     def start_workers(self) -> None:
-        """Start the tailer (not the HTTP server)."""
+        """Start the pipeline's stage threads, if on, and the tailer (not
+        the HTTP server)."""
+        if self.pipeline is not None:
+            self.pipeline.start()
         self.tailer.start()
 
     def server_deps(self):
@@ -304,9 +347,13 @@ class BanjaxApp:
 
     def shutdown(self) -> None:
         """Stop the workers and release what the app holds, in the JAX order:
-        the tailer first (no new bans), then the lists' sweeper, the
+        the tailer first (no new lines), the pipeline (it drains what was
+        admitted, then its threads stop), then the lists' sweeper, the
         decision table, the matcher, and the files."""
         tailer_stopped = self.tailer.stop()
+        if self.pipeline is not None and tailer_stopped:
+            self.pipeline.flush()
+            tailer_stopped = self.pipeline.stop()
         self.dynamic_lists.close()
         dt = self.decision_table
         if dt is not None:
@@ -315,7 +362,7 @@ class BanjaxApp:
             dt.close()
         if not tailer_stopped:
             # a batch still runs on the matcher: leave it to the process's end
-            log.warning("log tailer did not stop; the matcher is left open")
+            log.warning("log tailer or pipeline did not stop; the matcher is left open")
         elif self._matcher is not None:
             self._matcher.close()
             self._matcher = None

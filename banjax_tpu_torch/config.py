@@ -10,16 +10,19 @@ tiering keys (`matcher_native_parse`, `slotmgr_native`,
 decision chain the decision lists, the password, session and challenge
 keys and the `challenge_*` keys of the challenge plane; for the service
 around both (`config_holder.py`, `cli.BanjaxApp`) the log files, the
-HTTP listener keys and the serving fast path's keys.
+HTTP listener keys and the serving fast path's keys; for the streaming
+pipeline (`pipeline/`) and the breaker and failpoints it drives, the
+`pipeline_*`, `breaker_*`, `matcher_latency_budget_ms`,
+`matcher_probe_seconds`, `failpoints*`, `encode_workers` and
+`drain_resolve_depth` keys, with the JAX defaults and checks.
 
 A key the JAX schema reads and the port does not (the modules it
 configures are not ported yet) is named in one warning per load and
 kept in `Config.not_ported`; it is never dropped without a word, and
 never refused, so the deploy file still loads. Keys neither schema
-knows are ignored, as the full schema ignores them. Three keys select
-paths the port does not have and fail the load: `pipeline_enabled:
-true`, a `matcher_mesh_devices` above 0, and an `http_workers` other
-than 0 (multi-process serving).
+knows are ignored, as the full schema ignores them. Two keys select
+paths the port does not have and fail the load: a `matcher_mesh_devices`
+above 0, and an `http_workers` other than 0 (multi-process serving).
 `load_pages` embeds the two challenge pages as `ConfigHolder` does.
 
 `RegexWithRate.from_yaml_dict` is a copy of the schema's: RE2-dialect
@@ -166,6 +169,24 @@ class Config:
     admin_token: str = ""
     serve_fastpath_enabled: bool = True
     serve_decision_table_capacity: int = 65536
+    # --- the breaker, the failpoints, the streaming pipeline
+    breaker_failure_threshold: int = 3
+    breaker_recovery_seconds: float = 30.0
+    matcher_latency_budget_ms: float = 0.0
+    breaker_window_size: int = 0
+    failpoints: str = ""
+    failpoints_admin_enabled: bool = True
+    pipeline_enabled: bool = False
+    pipeline_ring_size: int = 4
+    pipeline_latency_budget_ms: float = 250.0
+    pipeline_buffer_lines: int = 131072
+    pipeline_max_block_ms: float = 250.0
+    matcher_probe_seconds: float = 0.0
+    pipeline_fused: bool = True
+    pipeline_kafka: bool = True  # read and checked; the Kafka reader is not ported
+    encode_workers: int = -1
+    drain_resolve_depth: int = 2
+    pipeline_command_take_max: int = 1024
     # not YAML keys: the holder sets them
     restart_time: int = 0
     reload_time: int = 0
@@ -225,6 +246,23 @@ _SCALAR_KEYS = {
     "admin_token": str,
     "serve_fastpath_enabled": bool,
     "serve_decision_table_capacity": int,
+    "breaker_failure_threshold": int,
+    "breaker_recovery_seconds": float,
+    "matcher_latency_budget_ms": float,
+    "breaker_window_size": int,
+    "failpoints": str,
+    "failpoints_admin_enabled": bool,
+    "pipeline_enabled": bool,
+    "pipeline_ring_size": int,
+    "pipeline_latency_budget_ms": float,
+    "pipeline_buffer_lines": int,
+    "pipeline_max_block_ms": float,
+    "matcher_probe_seconds": float,
+    "pipeline_fused": bool,
+    "pipeline_kafka": bool,
+    "encode_workers": int,
+    "drain_resolve_depth": int,
+    "pipeline_command_take_max": int,
 }
 
 _DICT_KEYS = (
@@ -240,33 +278,30 @@ _DICT_KEYS = (
 # keys the port reads besides the two tables above
 _OTHER_KEYS = (
     "regexes_with_rates", "per_site_regexes_with_rates", "kafka_brokers",
-    "pipeline_enabled", "matcher_mesh_devices",
+    "matcher_mesh_devices",
 )
 
 # the rest of the JAX schema's keys (`banjax_tpu/config/schema.py:504-577`):
 # read there, not here, until their modules are ported
 _NOT_PORTED_KEYS = frozenset((
     "block_ip_ttl_seconds", "block_session_ttl_seconds",
-    "breaker_failure_threshold", "breaker_recovery_seconds", "breaker_window_size",
-    "disable_kafka_writer", "dnet", "dnet_to_partition", "drain_resolve_depth",
-    "encode_workers", "fabric_enabled", "fabric_frame_max_bytes",
+    "disable_kafka_writer", "dnet", "dnet_to_partition",
+    "fabric_enabled", "fabric_frame_max_bytes",
     "fabric_gossip_interval_ms", "fabric_graceful_leave_ms", "fabric_indirect_probes",
     "fabric_inflight_frames", "fabric_listen", "fabric_node_id", "fabric_peers",
     "fabric_send_timeout_ms", "fabric_shm_enabled", "fabric_shm_ring_bytes",
     "fabric_suspect_timeout_ms", "fabric_takeover_grace_ms",
-    "fabric_trace_propagation", "fabric_vnodes", "fabric_wire_v2", "failpoints",
-    "failpoints_admin_enabled", "fleet_metrics_enabled", "fleet_scrape_timeout_ms",
+    "fabric_trace_propagation", "fabric_vnodes", "fabric_wire_v2",
+    "fleet_metrics_enabled", "fleet_scrape_timeout_ms",
     "flightrec_dir", "flightrec_fleet_capture", "flightrec_keep",
     "flightrec_min_interval_s", "flightrec_provenance_records",
     "ipset_netlink_enabled", "iptables_unbanner_seconds", "kafka_command_topic",
     "kafka_dialer_keep_alive_seconds", "kafka_dialer_timeout_seconds",
     "kafka_max_bytes", "kafka_max_wait_ms", "kafka_min_bytes", "kafka_report_topic",
     "kafka_security_protocol", "kafka_ssl_ca", "kafka_ssl_cert", "kafka_ssl_key",
-    "kafka_ssl_key_password", "matcher_backend", "matcher_latency_budget_ms",
-    "matcher_mesh_rp", "matcher_probe_seconds", "metrics_log_file",
-    "pipeline_buffer_lines", "pipeline_command_take_max", "pipeline_fused",
-    "pipeline_kafka", "pipeline_latency_budget_ms", "pipeline_max_block_ms",
-    "pipeline_ring_size", "profile", "provenance_enabled", "provenance_ring_size",
+    "kafka_ssl_key_password", "matcher_backend",
+    "matcher_mesh_rp", "metrics_log_file",
+    "profile", "provenance_enabled", "provenance_ring_size",
     "sites_to_block_ip_ttl_seconds", "sites_to_block_session_ttl_seconds",
     "slo_batch_latency_target", "slo_breaker_open_ratio_max",
     "slo_budget_trip_ratio_max", "slo_enabled", "slo_sample_seconds",
@@ -331,16 +366,6 @@ def config_from_yaml_text(text: str, standalone_testing_default: bool = False) -
             f"{cfg.pallas_single_kernel!r}"
         )
     # matcher paths the port does not have: refused, not dropped
-    if "pipeline_enabled" in raw and raw["pipeline_enabled"] is not None:
-        if not isinstance(raw["pipeline_enabled"], bool):
-            raise ValueError(
-                f"config key pipeline_enabled: expected bool, got {raw['pipeline_enabled']!r}"
-            )
-        if raw["pipeline_enabled"]:
-            raise ValueError(
-                "config key pipeline_enabled: the streaming pipeline is not "
-                "ported; set pipeline_enabled: false"
-            )
     mesh = raw.get("matcher_mesh_devices")
     if mesh is not None:
         if isinstance(mesh, bool) or not isinstance(mesh, int) or mesh < 0:
@@ -403,10 +428,68 @@ def config_from_yaml_text(text: str, standalone_testing_default: bool = False) -
             "config key serve_decision_table_capacity: expected >= 1 (rounded "
             f"up to a power of two), got {cfg.serve_decision_table_capacity}"
         )
+    _check_pipeline_keys(cfg)
     cfg.not_ported = sorted(k for k in raw if k in _NOT_PORTED_KEYS)
     if cfg.not_ported:
         log.warning("not ported: %s", ", ".join(cfg.not_ported))
     return cfg
+
+
+def _check_pipeline_keys(cfg: Config) -> None:
+    """The JAX schema's checks of the breaker, pipeline and encode keys
+    (`banjax_tpu/config/schema.py:667-726`), with its messages."""
+    if cfg.breaker_failure_threshold < 1:
+        raise ValueError(
+            "config key breaker_failure_threshold: expected >= 1, got "
+            f"{cfg.breaker_failure_threshold}"
+        )
+    if cfg.breaker_recovery_seconds < 0 or cfg.matcher_latency_budget_ms < 0:
+        raise ValueError(
+            "config keys breaker_recovery_seconds/matcher_latency_budget_ms: "
+            f"expected non-negative, got {cfg.breaker_recovery_seconds}/"
+            f"{cfg.matcher_latency_budget_ms}"
+        )
+    if cfg.breaker_window_size != 0 and (
+        cfg.breaker_window_size < cfg.breaker_failure_threshold
+    ):
+        raise ValueError(
+            "config key breaker_window_size: expected 0 (off) or >= "
+            f"breaker_failure_threshold ({cfg.breaker_failure_threshold}), "
+            f"got {cfg.breaker_window_size}"
+        )
+    if cfg.pipeline_ring_size < 1:
+        raise ValueError(
+            f"config key pipeline_ring_size: expected >= 1, got {cfg.pipeline_ring_size}"
+        )
+    if cfg.pipeline_latency_budget_ms <= 0:
+        raise ValueError(
+            "config key pipeline_latency_budget_ms: expected positive, got "
+            f"{cfg.pipeline_latency_budget_ms}"
+        )
+    if cfg.pipeline_buffer_lines < 1:
+        raise ValueError(
+            f"config key pipeline_buffer_lines: expected >= 1, got {cfg.pipeline_buffer_lines}"
+        )
+    if cfg.pipeline_max_block_ms < 0 or cfg.matcher_probe_seconds < 0:
+        raise ValueError(
+            "config keys pipeline_max_block_ms/matcher_probe_seconds: "
+            f"expected non-negative, got {cfg.pipeline_max_block_ms}/"
+            f"{cfg.matcher_probe_seconds}"
+        )
+    if cfg.encode_workers < -1:
+        raise ValueError(
+            "config key encode_workers: expected -1 (auto), 0 (single-"
+            f"thread) or a positive worker count, got {cfg.encode_workers}"
+        )
+    if cfg.drain_resolve_depth < 1:
+        raise ValueError(
+            f"config key drain_resolve_depth: expected >= 1, got {cfg.drain_resolve_depth}"
+        )
+    if cfg.pipeline_command_take_max < 1:
+        raise ValueError(
+            "config key pipeline_command_take_max: expected >= 1, got "
+            f"{cfg.pipeline_command_take_max}"
+        )
 
 
 def load_pages(cfg: Config) -> Config:

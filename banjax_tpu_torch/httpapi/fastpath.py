@@ -15,9 +15,10 @@ path exceptions, session-id entries, baskerville-disabled hosts — is an
 eligibility miss, and the chain serves it. A CHALLENGE hit enters the
 chain's own challenge stage, so its PoW check runs kernel C on the card.
 
-A lookup fault (a table error, anything unexpected) sends the request to
-the chain and is counted (`faults_total`), as in the JAX module; the
-`serve.fastpath.lookup` failpoint is not ported (failpoints are not).
+A lookup fault (a table error, anything unexpected, or the armed
+`serve.fastpath.lookup` failpoint, checked before the table probe) sends
+the request to the chain and is counted (`faults_total`), as in the JAX
+module.
 Hits, misses and faults are counted on the app's ServeFastpathStats
 (`deps.serve_stats`).
 """
@@ -46,6 +47,7 @@ from banjax_tpu_torch.httpapi.decision_chain import (
     send_or_validate_sha_challenge,
 )
 from banjax_tpu_torch.httpapi.rewrite import PASSWORD_COOKIE_NAME
+from banjax_tpu_torch.resilience import failpoints
 from banjax_tpu_torch.utils import go_query_escape, go_query_unescape
 
 log = logging.getLogger(__name__)
@@ -172,6 +174,7 @@ class AuthFastPath:
             return None
         stats = self.stats
         try:
+            failpoints.check("serve.fastpath.lookup")
             return self._lookup(req, gen, table, stats)
         except Exception:  # noqa: BLE001 — counted; the chain serves it
             stats.note_fault()

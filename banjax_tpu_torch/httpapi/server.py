@@ -10,6 +10,9 @@ access log line itself, and these routes:
   ANY  /auth_request        — the decision chain
   GET  /info                — config version
   GET  /healthz             — component health (admin-gated off loopback)
+  GET  /debug/failpoints    — instrumented sites and armed failpoints (admin)
+  POST /debug/failpoints    — arm/disarm failpoints (admin; 403 when
+                              failpoints_admin_enabled is false)
   GET  /decision_lists      — formatted static+dynamic lists
   GET  /rate_limit_states   — formatted rate-limit states
   GET  /is_banned?ip=       — expiring-list + ipset lookup
@@ -18,8 +21,8 @@ access log line itself, and these routes:
   POST /unban               — remove an IP from expiring list + ipset
 
 Single process only (multi-process workers are not ported). Not ported
-yet: /metrics, /debug/*, /decisions/explain, /traffic/top and the pprof
-routes (observability is a later slice). `run_http_server` takes the
+yet: /metrics, /debug/trace, /debug/incidents, /decisions/explain,
+/traffic/top and the pprof routes (observability is a later slice). `run_http_server` takes the
 port (the reference's 8081 by default) so that a test binds port 0. The
 recovery middleware counts every fail-open answer on the app's
 ServeFastpathStats.
@@ -56,6 +59,7 @@ from banjax_tpu_torch.httpapi.decision_chain import (
 )
 from banjax_tpu_torch.httpapi.fastserve import _clean_header
 from banjax_tpu_torch.httpapi.serve_stats import ServeFastpathStats
+from banjax_tpu_torch.resilience import failpoints
 from banjax_tpu_torch.utils import go_query_escape, go_query_unescape
 
 log = logging.getLogger(__name__)
@@ -482,10 +486,73 @@ def build_app(deps: ServerDeps, listen_host: str = LISTEN_HOST) -> web.Applicati
         status = 503 if snap["status"] == "failed" else 200
         return web.json_response(snap, status=status)
 
+    async def debug_failpoints_route(request: web.Request) -> web.Response:
+        """Runtime fault injection (resilience/failpoints.py): GET lists the
+        instrumented sites and every armed point; POST arms and disarms.
+
+        POST body (JSON), any combination, applied in this order:
+            {"disarm_all": true}
+            {"disarm": ["pipeline.submit", ...]}
+            {"arm": [{"name": "pipeline.submit", "mode": "error",
+                      "count": 3, "probability": 0.5, "delay_s": 0.0}]}
+            {"spec": "matcher.device=error:3@0.5"}
+        Responds with the resulting armed list (the JAX route's bodies and
+        status codes)."""
+        denied = _admin_denied(request)
+        if denied is not None:
+            return denied
+        if not deps.config_holder.get().failpoints_admin_enabled:
+            return web.json_response({"error": "failpoints_admin_enabled is false"}, status=403)
+        if request.method == "POST":
+            try:
+                body = await request.json()
+            except Exception:  # noqa: BLE001 — the client's error, answered 400
+                return web.json_response({"error": "body must be JSON"}, status=400)
+            if not isinstance(body, dict):
+                return web.json_response({"error": "body must be a JSON object"}, status=400)
+            if body.get("disarm_all"):
+                failpoints.disarm()
+            for name in body.get("disarm") or []:
+                failpoints.disarm(str(name))
+            arms = body.get("arm") or []
+            if not isinstance(arms, list):
+                return web.json_response({"error": "arm must be a list"}, status=400)
+            for ent in arms:
+                if not isinstance(ent, dict) or not ent.get("name"):
+                    return web.json_response({"error": "each arm entry needs a name"},
+                                             status=400)
+                mode = ent.get("mode", "error")
+                if mode not in failpoints.MODES:
+                    return web.json_response({"error": f"unknown mode {mode!r}"}, status=400)
+                count = ent.get("count")
+                if count is not None:
+                    try:
+                        count = int(count)
+                    except (TypeError, ValueError):
+                        return web.json_response({"error": "count must be an integer"},
+                                                 status=400)
+                try:
+                    probability = float(ent.get("probability", 1.0))
+                    delay_s = float(ent.get("delay_s", 0.0))
+                except (TypeError, ValueError):
+                    return web.json_response(
+                        {"error": "probability/delay_s must be numbers"}, status=400)
+                failpoints.arm(str(ent["name"]), mode=mode, count=count, delay_s=delay_s,
+                               probability=probability, seed=ent.get("seed"))
+            if isinstance(body.get("spec"), str):
+                failpoints.arm_from_spec(body["spec"])
+        return web.json_response({
+            "enabled": True,
+            "sites": list(failpoints.KNOWN_SITES),
+            "armed": failpoints.snapshot(),
+        })
+
 
     app.router.add_route("*", "/auth_request", auth_request)
     app.router.add_get("/info", info)
     app.router.add_get("/healthz", healthz)
+    app.router.add_get("/debug/failpoints", debug_failpoints_route)
+    app.router.add_post("/debug/failpoints", debug_failpoints_route)
     app.router.add_get("/decision_lists", decision_lists_route)
     app.router.add_get("/rate_limit_states", rate_limit_states_route)
     app.router.add_get("/is_banned", is_banned)

@@ -18,8 +18,9 @@ One deliberate difference from the JAX tailer, which logs and swallows
 any error of `on_lines`: the port's tailer stays alive too, but counts
 each failed batch in `errors`, keeps the last exception in `last_error`
 and sets its health to failed, so a matcher or kernel fault on the card
-is never silent. The JAX tailer's `tailer.open` failpoint is not ported
-(failpoints are not); a missing file exercises the same retry path.
+is never silent. The `tailer.open` failpoint fires at every open (the
+first and each reopen); its `FaultInjected` is an OSError, so it takes
+the same retry path as a missing file, and `open_faults` counts it.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import os
 import threading
 from typing import Callable, List, Optional
 
+from banjax_tpu_torch.resilience import failpoints
 from banjax_tpu_torch.resilience.backoff import Backoff, reconnect_backoff
 from banjax_tpu_torch.resilience.health import ComponentHealth
 
@@ -57,6 +59,8 @@ class LogTailer:
         self.last_error: Optional[BaseException] = None
         # lines handed to on_lines without an error (tests wait on it)
         self.lines_delivered = 0
+        # opens the tailer.open failpoint failed
+        self.open_faults = 0
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -74,6 +78,11 @@ class LogTailer:
         return True
 
     def _open(self, at_end: bool):
+        try:
+            failpoints.check("tailer.open")
+        except failpoints.FaultInjected:
+            self.open_faults += 1
+            raise
         f = open(self.path, "r", encoding="utf-8", errors="replace")
         if at_end:
             f.seek(0, os.SEEK_END)

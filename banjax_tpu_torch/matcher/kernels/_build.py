@@ -11,7 +11,9 @@ source is rebuilt. `build_all` starts one compiler per source at once.
 A library that cannot be built or loaded raises: nothing falls back.
 
 A CUDA library also holds its kernel's launch count: the wrapper that
-launches the kernel adds one per launch, and nothing else does.
+launches the kernel adds one per launch (`count_launch`, under a lock,
+since the pipeline's stage threads launch concurrently), and nothing
+else does. `launches_by_thread` splits the count by thread name.
 """
 
 from __future__ import annotations
@@ -67,7 +69,20 @@ class CudaLibrary:
         self.source = self.src_dir / source
         self.functions = functions  # C function -> ctypes argtypes
         self.launches = 0
+        self.launches_by_thread: Dict[str, int] = {}
+        self._count_lock = threading.Lock()
         self._lib: Optional[ctypes.CDLL] = None
+
+    def count_launch(self) -> None:
+        name = threading.current_thread().name
+        with self._count_lock:
+            self.launches += 1
+            self.launches_by_thread[name] = self.launches_by_thread.get(name, 0) + 1
+
+    def reset_launches(self) -> None:
+        with self._count_lock:
+            self.launches = 0
+            self.launches_by_thread = {}
 
     @property
     def path(self) -> Path:

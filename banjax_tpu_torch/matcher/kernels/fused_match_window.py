@@ -150,7 +150,7 @@ def window_scan(xs: ScanIn) -> ScanOut:
     ex = torch.empty(E, dtype=torch.bool, device=dev)
     if E:
         o = out.data_ptr()
-        KERNEL.launches += 1
+        KERNEL.count_launch()
         KERNEL.call(
             "window_scan_launch", *[t.data_ptr() for t in xs],
             o, o + 4 * E, o + 8 * E, o + 12 * E, ex.data_ptr(), E, dev.index, raw_stream(dev),

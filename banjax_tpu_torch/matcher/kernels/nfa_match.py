@@ -160,7 +160,7 @@ def accept_words(prep: TorchNfaRules, cls: torch.Tensor, lens: torch.Tensor,
         return out
     # scratch for the kernel's length sort (groups of one line go without)
     order = torch.empty(B, dtype=torch.int32, device=cls.device) if R > 1 else None
-    KERNEL.launches += 1
+    KERNEL.count_launch()
     KERNEL.call(
         "nfa_scan_launch", cls.data_ptr(), cls.stride(0), lens.data_ptr(),
         None if order is None else order.data_ptr(),

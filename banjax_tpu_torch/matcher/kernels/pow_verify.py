@@ -148,7 +148,7 @@ def leading_zero_bits(msg: torch.Tensor) -> torch.Tensor:
     out = torch.empty(B, dtype=torch.int32, device=msg.device)
     if B == 0:
         return out
-    KERNEL.launches += 1
+    KERNEL.count_launch()
     KERNEL.call("pow_verify_launch", msg.data_ptr(), out.data_ptr(), B,
                 msg.device.index, raw_stream(msg.device))
     return out
@@ -205,7 +205,7 @@ class PowDispatcher:
     def launch(self, B: int) -> None:
         """Kernel C over the first B slots into the counts; returns when
         they are written (raises on a CUDA error)."""
-        KERNEL.launches += 1
+        KERNEL.count_launch()
         err = self._launch(self._msg_ptr, self._out_ptr, B, self.device.index, self._raw_stream)
         if err != 0:
             raise RuntimeError(f"pow_verify.pow_verify_dispatch failed: CUDA error {err}")

@@ -30,13 +30,39 @@ Each committed chunk also folds into the traffic sketch (`obs/sketch.py`)
 on the card. Unlike the JAX runner, nothing here swallows an error of
 the sketch hooks or the admission gate: a fault reaches the caller.
 
-The JAX runner's streaming split protocol, mesh, breaker, health,
-provenance and tracing are not part of this port.
+The circuit breaker (`resilience/breaker.py`) brackets every batch: a
+batch that raises records a failure and re-raises; while the breaker is
+open, `consume_lines` raises `BreakerOpen` before it touches the card and
+counts the refusal. The JAX runner reruns such batches on its host
+reference matcher; the port moves no work to the host. A batch over
+`matcher_latency_budget_ms` is counted (`budget_trips`) and, unlike in
+the JAX runner, is not a breaker failure: an open breaker here refuses
+lines, so tripping on a slow but working card would turn lateness into
+loss. (The JAX runner's budget derived from the pipeline's device p99
+feeds only its breaker, and is not ported.)
+
+The streaming pipeline's split protocol (`pipeline/scheduler.py`):
+`pipeline_begin` (or `encode_shard` per row shard and
+`pipeline_begin_from_shards`) parses on fresh buffers; `pipeline_submit`
+runs the admission gate, applies the refused rows' windows on the host
+and commits each chunk in one device program (kernel A then kernel B),
+with the 10 s staleness cut taken from the scheduler's clock;
+`pipeline_collect` waits for the chunks' result copies; `pipeline_finish`
+replays everything in admission order on the drain thread. A batch that
+cannot commit at submit (slot refusal, host-eval rows, `pipeline_fused:
+false`, or an earlier batch that still owes a drain-time window apply)
+takes the classic pend: its match at submit, its windows at its drain.
+The JAX runner's two-program fused mode (program A at submit, program B
+at drain) is not ported. Where the JAX runner replays a batch's refused
+rows at submit, the port replays them at the batch's drain, so ban-log
+order stays the synchronous path's. The mesh, provenance and tracing are
+not part of this port.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -55,14 +81,29 @@ from banjax_tpu_torch.matcher.kernels import fused_match_window, nfa_match
 from banjax_tpu_torch.matcher.prefilter import FusedPrefilter, PrefilterOverflow, build_plan
 from banjax_tpu_torch.matcher.rulec import compile_rules
 from banjax_tpu_torch.matcher.windows import DeviceWindows, split_ns
-from banjax_tpu_torch.matcher.workset import LazyResults, ListWork, NativeWork, unique_spans
+from banjax_tpu_torch.matcher.workset import (
+    CompositeWork,
+    LazyResults,
+    ListWork,
+    NativeWork,
+    unique_spans,
+)
 from banjax_tpu_torch.obs.sketch import TrafficSketch
 from banjax_tpu_torch.obs.stages import StageClock
+from banjax_tpu_torch.obs.stats import MatcherStats
+from banjax_tpu_torch.resilience import failpoints
+from banjax_tpu_torch.resilience.breaker import CLOSED, CircuitBreaker
+from banjax_tpu_torch.resilience.health import HealthStatus
 
 log = logging.getLogger(__name__)
 
 OLD_LINE_CUTOFF_SECONDS = 10
 _MIN_BUCKET = 64
+
+
+class BreakerOpen(RuntimeError):
+    """The matcher's breaker is open: the batch was refused before it
+    touched the card (and counted in `refused_batches`/`refused_lines`)."""
 
 
 class TorchMatcher(Matcher):
@@ -72,6 +113,7 @@ class TorchMatcher(Matcher):
         banner: BannerInterface,
         decision_lists: StaticDecisionLists,
         device: DeviceLike = None,
+        health=None,
     ):
         self.device = resolve_device(device)
         if not config.matcher_device_windows:
@@ -88,6 +130,31 @@ class TorchMatcher(Matcher):
         self.banner = banner
         self.decision_lists = decision_lists
         dev = self.device
+
+        # the circuit breaker around the device batch path, and the
+        # configured latency budget
+        self.breaker = CircuitBreaker(
+            failure_threshold=config.breaker_failure_threshold,
+            recovery_seconds=config.breaker_recovery_seconds,
+            window_size=config.breaker_window_size,
+            name="matcher-device",
+        )
+        self._latency_budget_s = config.matcher_latency_budget_ms / 1e3
+        self.budget_trips = 0      # batches over the latency budget
+        self.refused_batches = 0   # batches the open breaker refused
+        self.refused_lines = 0
+        self.stats = MatcherStats()
+        self._health = health.register("matcher") if health is not None else None
+        # the split protocol: pipeline_fused false sends every batch down
+        # the classic pend (the config's drain_resolve_depth has nothing
+        # to overlap on the single-program commit, as the JAX runner warns)
+        self._pipeline_fused = config.pipeline_fused
+        self.pipelined_fused_chunks = 0
+        self.pipelined_fused_fallbacks = 0
+        # batches whose window apply waits for their drain (classic pend):
+        # while any is outstanding, a later batch must not commit at submit
+        self._drain_window_lock = threading.Lock()
+        self._drain_window_batches = 0
 
         # rule table: per-site rules first, then global — rule id i is
         # column i of the match bitmap, end to end
@@ -218,11 +285,51 @@ class TorchMatcher(Matcher):
         self._nfa = None
         self._active_table = None
 
+    def bind_thread(self) -> None:
+        """Make this matcher's card the calling thread's current CUDA
+        device (it is per thread): the pipeline's stage threads call this
+        before their device work."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+
     # ---- Matcher API ----
 
     def consume_lines(
+        self, lines: Sequence[str], now_unix: Optional[float] = None,
+        _fused_ok: bool = True,
+    ) -> List[ConsumeLineResult]:
+        """The breaker-guarded batch entry point. Open: the batch is refused
+        (`BreakerOpen`) before it touches the card. Closed or half-open: the
+        batch runs; one that raises records a breaker failure and re-raises
+        (nothing is rerun on the host)."""
+        if not self.breaker.allow():
+            self._refuse(len(lines))
+        t0 = time.perf_counter()
+        try:
+            try:
+                results = self._consume_lines_inner(lines, now_unix, _fused_ok)
+            except Exception:
+                self.breaker.record_failure()
+                self._note_health()
+                raise
+            self._note_budget(time.perf_counter() - t0)
+            self.breaker.record_success()
+            self._note_health()
+            return results
+        finally:
+            self.stats.record_batch(len(lines), time.perf_counter() - t0)
+
+    def consume_lines_serial(
         self, lines: Sequence[str], now_unix: Optional[float] = None
     ) -> List[ConsumeLineResult]:
+        """consume_lines without the fused program: the pipeline's generic
+        drain. Later batches' chunks may hold the fused pipeline's order
+        turns while this batch drains, and a fused burst here would wait on
+        turns that only free after this very drain (the JAX runner's
+        reason too). The classic path it takes gives the same results."""
+        return self.consume_lines(lines, now_unix, _fused_ok=False)
+
+    def _consume_lines_inner(self, lines, now_unix, fused_ok) -> List[ConsumeLineResult]:
         now = time.time() if now_unix is None else now_unix
         results = LazyResults(len(lines))
         with self.clock("gate"):
@@ -235,7 +342,7 @@ class TorchMatcher(Matcher):
         if part is not None:
             work, encoded, work_r, encoded_r = part
             with self.clock("refused"):
-                self._consume_refused(work_r, encoded_r, results)
+                self._replay_refused(self._refused_events(work_r, encoded_r), results)
             if not len(work):
                 return results
         if encoded is None:
@@ -244,7 +351,7 @@ class TorchMatcher(Matcher):
                     self.compiled, [p.rest for _, p in work], self._max_len
                 )
         cls_ids, lens, host_eval = encoded
-        if self._fw_pipeline is not None and not host_eval.any():
+        if fused_ok and self._fw_pipeline is not None and not host_eval.any():
             self._consume_via_pipeline(work, cls_ids, lens, results)
             return results
         with self.clock("chunk"):
@@ -252,19 +359,88 @@ class TorchMatcher(Matcher):
         self._apply_device_windows(work, bits, results)
         return results
 
-    def _gate(self, lines, now, results):
+    # ---- the breaker, the latency budget, health ----
+
+    def _refuse(self, n_lines: int) -> None:
+        self.refused_batches += 1
+        self.refused_lines += n_lines
+        self._note_health()
+        raise BreakerOpen(
+            f"matcher breaker {self.breaker.state}: a batch of {n_lines} lines "
+            "is refused (the port reruns nothing on the host)"
+        )
+
+    def _note_budget(self, elapsed_s: float) -> None:
+        # matcher_latency_budget_ms (0 = off). The JAX runner derives a
+        # budget from the pipeline's device p99 when it is unset, because
+        # there a breach is a breaker failure; here it is only counted
+        budget = self._latency_budget_s
+        if budget and elapsed_s > budget:
+            self.budget_trips += 1
+
+    def note_device_outcome(self, elapsed_s: float, ok: bool) -> None:
+        """Breaker and health accounting for a device dispatch the pipeline
+        drives (its submit and collect stages, the probe)."""
+        if ok:
+            self._note_budget(elapsed_s)
+            self.breaker.record_success()
+        else:
+            self.breaker.record_failure()
+        self._note_health()
+
+    def _note_health(self) -> None:
+        if self._health is None:
+            return
+        state = self.breaker.state
+        if state == CLOSED:
+            self._health.ok()
+        else:
+            self._health.set_status(
+                HealthStatus.DEGRADED,
+                f"breaker {state}; batches are refused, not rerouted",
+            )
+
+    def probe(self, now_unix: Optional[float] = None) -> bool:
+        """A synthetic device probe: one canned line through the stateless
+        match (kernel A), no window update and no Banner effect, so that a
+        wedged card trips the breaker while the log is idle, and so that a
+        half-open breaker can close without traffic. False when the probe
+        failed or the breaker refused it."""
+        if not self.breaker.allow():
+            return False
+        now = time.time() if now_unix is None else now_unix
+        line = (f"{now:.6f} 203.0.113.1 GET banjax-probe.invalid "
+                "GET /__banjax_probe HTTP/1.1 probe -")
+        t0 = time.perf_counter()
+        try:
+            lw = ListWork()
+            lw.append((0, parse_line(line, now, OLD_LINE_CUTOFF_SECONDS)))
+            self._match_bits(lw, None)
+        except Exception:  # noqa: BLE001 — a failed probe is the signal; it is counted
+            log.exception("matcher device probe failed")
+            self.note_device_outcome(time.perf_counter() - t0, ok=False)
+            return False
+        self.note_device_outcome(time.perf_counter() - t0, ok=True)
+        return self.breaker.state == CLOSED
+
+    def _gate(self, lines, now, results, use_scratch=True, parse_threads=None):
         """Host parse + allowlist exemption -> (work, (cls_ids, lens,
         host_eval) or None): one native pass when configured, else the
-        Python parse per line (encoded later)."""
+        Python parse per line (encoded later). `use_scratch=False` (the
+        pipeline's split path) parses into fresh buffers: with batches in
+        flight, one batch's work set must not alias buffers the next
+        parse reuses."""
         if self._native:
             from banjax_tpu_torch import native
 
             nb = native.parse_encode_batch(
                 lines, self.compiled.byte_to_class, self._max_len, now,
-                OLD_LINE_CUTOFF_SECONDS, scratch=self._parse_scratch,
+                OLD_LINE_CUTOFF_SECONDS,
+                scratch=self._parse_scratch if use_scratch else None,
+                max_threads=parse_threads,
             )
             if nb is not None:
-                return self._native_gate(nb, lines, now, results)
+                return self._native_gate(nb, lines, now, results, use_scratch)
         work = ListWork()
         for i, text in enumerate(lines):
             p = parse_line(text, now, OLD_LINE_CUTOFF_SECONDS)
@@ -281,7 +457,7 @@ class TorchMatcher(Matcher):
             work.append((i, p))
         return work, None
 
-    def _native_gate(self, nb, lines, now, results):
+    def _native_gate(self, nb, lines, now, results, use_scratch=True):
         """The gate over a native ParsedBatch, columnar: flag masks, unique
         ip/host tables, the allowlist per distinct (host, ip) with a cache,
         a NativeWork, and the pre-encoded class ids (int32 [n, max_len],
@@ -322,10 +498,11 @@ class TorchMatcher(Matcher):
         vmask = ~np.isin(cand, darr) if darr.size else np.ones(cand.size, dtype=bool)
         vrows = cand[vmask]
         text = nb.text()
+        dedup = self._dedup_scratch if use_scratch else None
         ips_u, ip_inv_v = unique_spans(nb.ip_off[vrows], nb.ip_len[vrows], nb.blob, text,
-                                       self._dedup_scratch)
+                                       dedup)
         hosts_u, host_inv_v = unique_spans(nb.host_off[vrows], nb.host_len[vrows], nb.blob,
-                                           text, self._dedup_scratch)
+                                           text, dedup)
         ip_inv = np.empty(cand.size, dtype=np.int64)
         host_inv = np.empty(cand.size, dtype=np.int64)
         ip_inv[vmask] = ip_inv_v
@@ -427,13 +604,14 @@ class TorchMatcher(Matcher):
             enc_r = (cls_ids[ref], lens[ref], host_eval[ref])
         return work.take(adm), enc_a, work.take(ref), enc_r
 
-    def _consume_refused(self, work, encoded, results) -> None:
+    def _refused_events(self, work, encoded):
         """Slot-refused rows: a stateless match (kernel A through the
         prefilter, no slot, no device window state), then the window steps
-        on the host in (line, rule_id) order, homed in the warm tier, and
-        the same replay as every other path."""
+        on the host in (line, rule_id) order, homed in the warm tier.
+        Returns what `_replay_refused` replays: (work, bits, events), or
+        None when there are no rows."""
         if not len(work):
-            return
+            return None
         bits = self._match_bits(work, encoded)
         events_in = []
         for row in np.flatnonzero(bits.any(axis=1)).tolist():
@@ -444,8 +622,310 @@ class TorchMatcher(Matcher):
                 if self._entries[idx][1].hosts_to_skip.get(p.host):
                     continue  # no window event (the active table's rule)
                 events_in.append((row, idx, p.ip, p.timestamp_ns))
-        events = self.device_windows.apply_host_events(events_in)
-        self._replay_window_events(work, bits, None, events, results)
+        return work, bits, self.device_windows.apply_host_events(events_in)
+
+    def _replay_refused(self, refused, results) -> None:
+        if refused is not None:
+            work, bits, events = refused
+            self._replay_window_events(work, bits, None, events, results)
+
+    # ---- the streaming pipeline's split protocol (pipeline/scheduler.py) ----
+    #
+    # consume_lines cut at its seams so that the scheduler runs the pieces
+    # on its stage threads: begin (parse, gate, encode) on the encode
+    # thread, submit (admission, refused rows' windows, one device program
+    # a chunk) and collect (wait for the result copies) on the device
+    # thread, finish (replay into results and the Banner) on the drain
+    # thread, one batch at a time in admission order.
+
+    def pipeline_begin(self, lines: Sequence[str], now: float) -> dict:
+        """Encode stage: parse, gate and encode into fresh buffers (batches
+        in flight must not share a parse scratch)."""
+        results = LazyResults(len(lines))
+        with self.clock("gate"):
+            work, encoded = self._gate(lines, now, results, use_scratch=False)
+        return self._pipeline_state(lines, results, work, encoded)
+
+    def encode_shard(self, lines: Sequence[str], now: float):
+        """One contiguous row shard of the encode stage, on the scheduler's
+        encode pool: the native parse (one thread: the shard is one) and
+        the gate, into fresh buffers. Row indices are the shard's own;
+        `pipeline_begin_from_shards` rebases them."""
+        results = LazyResults(len(lines))
+        with self.clock("gate"):
+            work, encoded = self._gate(lines, now, results, use_scratch=False, parse_threads=1)
+        return work, encoded, results
+
+    def pipeline_begin_from_shards(self, lines: Sequence[str], now: float, shards) -> dict:
+        """Merge `encode_shard` outputs, [(row0, (work, encoded, results)),
+        ...] in row order and covering `lines`, into the state
+        `pipeline_begin` gives: results rebased by row0, the work sets
+        joined in line order (`CompositeWork`), the encoded arrays
+        concatenated, the distinct-IP table in global first-appearance
+        order, so that slots, window events and ban-log bytes equal the
+        single-thread encode's."""
+        results = LazyResults(len(lines))
+        parts, offsets, pres = [], [], []
+        native_pre = True
+        for row0, (work, pre, shard_results) in shards:
+            results.absorb(shard_results, row0)
+            if not len(work):
+                continue
+            parts.append(work)
+            offsets.append(row0)
+            if pre is None:
+                native_pre = False
+            else:
+                pres.append(pre)
+        if not parts:
+            work, encoded = ListWork(), None
+        elif len(parts) == 1 and offsets[0] == 0:
+            work = parts[0]
+            encoded = pres[0] if (native_pre and pres) else None
+        else:
+            work = CompositeWork(parts, offsets)
+            # a shard the Python parse took has no encoded arrays: the
+            # merged batch encodes from the rests
+            encoded = (tuple(np.concatenate([p[k] for p in pres]) for k in range(3))
+                       if native_pre else None)
+        return self._pipeline_state(lines, results, work, encoded)
+
+    def _pipeline_state(self, lines, results, work, encoded) -> dict:
+        state = {"lines": lines, "results": results, "work": work, "pre": encoded,
+                 "refused_rows": None, "refused": None, "fused": None, "classic": None,
+                 "classic_pre": None, "pend": None, "bits": None, "fused_eligible": False}
+        if self._pipeline_fused and self._fw_pipeline is not None and len(work):
+            if encoded is None:
+                with self.clock("encode"):
+                    state["pre"] = encode_for_match(
+                        self.compiled, [p.rest for _, p in work], self._max_len
+                    )
+            state["fused_eligible"] = not state["pre"][2].any()  # no host-eval rows
+        return state
+
+    def pipeline_submit(self, state: dict, now: Optional[float] = None) -> None:
+        """Device stage. The admission gate splits the batch; the refused
+        rows' windows step on the host now, so that the next batch's
+        admission reads them (their replay waits for this batch's drain).
+        The admitted rows commit chunk by chunk in one device program each
+        (the live mask: rows younger than the cutoff at `now`), or, when
+        that is not order-safe or a slot allocation refuses, take the
+        classic pend from that row on: matched now, their windows applied
+        at this batch's drain.
+
+        If it raises once the batch has committed something (the refused
+        rows' sketch fold and host steps, a chunk's program), the rows not
+        committed take the classic path at this batch's drain, matched
+        there (see `pipeline_recover`)."""
+        if not len(state["work"]):
+            return
+        try:
+            self._submit_stages(state, now)
+        except BaseException:
+            if self._committed(state):
+                row0 = sum(len(e["work"]) for e in state["fused"] or ())
+                if state["classic"] is None and row0 < len(state["work"]):
+                    self._classic_rows(state, row0)
+                state["pend"] = None
+            raise
+
+    def _submit_stages(self, state: dict, now: Optional[float]) -> None:
+        with self.clock("admission"):
+            part = self._partition_admission(state["work"], state["pre"])
+        if part is not None:
+            state["work"], state["pre"], work_r, pre_r = part
+            # folded into the sketch: from here a rerun would count them twice
+            state["refused_rows"] = (work_r, pre_r)
+            with self.clock("refused"):
+                state["refused"] = self._refused_events(work_r, pre_r)
+            state["refused_rows"] = None
+            if not len(state["work"]):
+                return
+        row0 = 0
+        if state["fused_eligible"] and self._single_kernel_ordered():
+            row0 = self._submit_fused_pipeline(state, now)
+            if row0 == len(state["work"]):
+                return
+        self._classic_rows(state, row0)
+        with self.clock("chunk"):
+            state["pend"] = self._match_bits_submit(state["classic"], state["classic_pre"])
+
+    def _classic_rows(self, state: dict, row0: int) -> None:
+        """Rows row0.. of the admitted work apply their windows at this
+        batch's drain: later batches must not commit at submit before
+        then (the drain-window gate)."""
+        work, pre = state["work"], state["pre"]
+        state["classic"] = work[row0:] if row0 else work
+        state["classic_pre"] = None if pre is None else tuple(a[row0:] for a in pre)
+        with self._drain_window_lock:
+            self._drain_window_batches += 1
+        state["window_at_drain"] = True
+
+    @staticmethod
+    def _committed(state: dict) -> bool:
+        return bool(state["refused_rows"] is not None or state["refused"] is not None
+                    or state["fused"])
+
+    def pipeline_recover(self, state: dict) -> bool:
+        """After a failed device stage (submit or collect): True when the
+        batch had committed something — the refused rows' fold and host
+        steps, a chunk's program on the card — so that rerunning it whole
+        would count those hits twice. Its drain (`pipeline_finish`) then
+        replays what was committed once and runs the rows that were not
+        through the classic path, matched at the drain. False when nothing
+        was committed: the caller aborts the batch and reruns it whole."""
+        return self._committed(state)
+
+    def _single_kernel_ordered(self) -> bool:
+        """Committing at submit is order-safe only while no earlier batch
+        still owes a drain-time window apply; otherwise this batch takes
+        the classic pend too, and the drain thread applies in order."""
+        with self._drain_window_lock:
+            return self._drain_window_batches == 0
+
+    def _submit_fused_pipeline(self, state: dict, now: Optional[float] = None) -> int:
+        """Run the fused program for each chunk of the batch; returns the
+        rows committed: all of them, or the chunks before the first whose
+        slot allocation refused (in-flight batches hold pins until their
+        drains). Unlike the JAX runner, which abandons every chunk of such
+        a batch, committed chunks stay: a commit on the card cannot be
+        taken back. A failure leaves the chunks committed so far in
+        `state["fused"]` for the drain to replay, and re-raises."""
+        failpoints.check("matcher.device")
+        work = state["work"]
+        cls_ids, lens, _ = state["pre"]
+        if now is None:
+            now = time.time()
+        mb = self._max_batch
+        entries: List[dict] = []
+        for s in range(0, len(work), mb):
+            wc = work[s : s + mb]
+            st = (now - wc.ts_array() / 1e9) > OLD_LINE_CUTOFF_SECONDS
+            stale = live = None
+            if st.any():
+                stale, live = st, ~st
+            e = self._submit_pipeline_chunk(wc, cls_ids[s : s + mb], lens[s : s + mb],
+                                            live=live)
+            if e is None:
+                break
+            e.update(row0=s, live=live, stale=stale)
+            entries.append(e)
+            state["fused"] = entries
+        return sum(len(e["work"]) for e in entries)
+
+    def pipeline_collect(self, state: dict) -> None:
+        """Device stage, later: wait for the committed chunks' result
+        copies, and pull the classic pend's match bits. If it raises, the
+        chunks stay for the drain (whose resolve waits for them itself)
+        and the classic rows are matched again there."""
+        entries = state["fused"]
+        if entries:
+            with self.clock("chunk"):
+                for e in entries:
+                    if e["pend"].copied is not None:
+                        e["pend"].copied.synchronize()
+        pend, state["pend"] = state["pend"], None
+        if pend is not None:
+            with self.clock("chunk"):
+                state["bits"] = self._match_bits_collect(pend)
+
+    def pipeline_abort(self, state: dict) -> None:
+        """Settle a batch that will not finish (its device stage or its
+        drain failed): release its chunks' order turns and slot pins, and
+        its drain-time window slot, exactly once. Idempotent."""
+        entries, state["fused"] = state["fused"], None
+        self._drain_window_done(state)
+        for e in entries or ():
+            self._fw_pipeline.abandon(e["pend"])
+
+    def _drain_window_done(self, state: dict) -> None:
+        if state.pop("window_at_drain", False):
+            with self._drain_window_lock:
+                self._drain_window_batches -= 1
+
+    def pipeline_finish(self, state: dict, now: float):
+        """Drain stage, in admission order: the refused rows' replay, then
+        each committed chunk's event pull and replay (its staleness cut was
+        taken at submit), then the classic pend's rows, re-checked for
+        staleness at `now` (a line that aged out in the pipeline is marked
+        old_line and counted) before their windows apply. Returns
+        (results, lines dropped as stale). A chunk that fails raises: the
+        scheduler counts the batch as failed and aborts what is left.
+
+        After a failed device stage (`pipeline_recover`) the same steps
+        finish the batch: the refused rows' host steps if submit did not
+        reach them, and the classic rows' match if it was not collected."""
+        t0 = time.perf_counter()
+        results = state["results"]
+        n_stale = 0
+        try:
+            if state["refused_rows"] is not None:
+                with self.clock("refused"):
+                    state["refused"] = self._refused_events(*state["refused_rows"])
+                state["refused_rows"] = None
+            refused, state["refused"] = state["refused"], None
+            self._replay_refused(refused, results)
+            if state["fused"]:
+                n_stale += self._finish_single_kernel(state, results)
+            work = state["classic"]
+            if work is not None and len(work):
+                bits = state["bits"]
+                if bits is None:
+                    pend, state["pend"] = state["pend"], None
+                    with self.clock("chunk"):
+                        bits = (self._match_bits_collect(pend) if pend is not None
+                                else self._match_bits(work, state["classic_pre"]))
+                stale = (now - work.ts_array() / 1e9) > OLD_LINE_CUTOFF_SECONDS
+                if stale.any():
+                    n_stale += int(stale.sum())
+                    for k in np.flatnonzero(stale).tolist():
+                        r = results[work[k][0]]
+                        r.old_line = True
+                        r.rule_results = []
+                    keep = np.flatnonzero(~stale)
+                    work, bits = work.take(keep), bits[keep]
+                if len(work):
+                    self._apply_device_windows(work, bits, results)
+            self._note_health()
+            return results, n_stale
+        except Exception:
+            self.note_device_outcome(time.perf_counter() - t0, ok=False)
+            raise
+        finally:
+            self._drain_window_done(state)
+            self.stats.record_batch(len(state["lines"]), time.perf_counter() - t0)
+
+    def _finish_single_kernel(self, state: dict, results) -> int:
+        """The committed chunks' drain: a pull of the buffer each copied
+        since submit, the decode and the replay; a gated chunk replays
+        through the classic fallback, in chunk order."""
+        fw = self._fw_pipeline
+        entries = state["fused"]
+        n_stale = 0
+        for k, e in enumerate(entries):
+            state["fused"] = entries[k:]  # what pipeline_abort settles if this raises
+            stale, live = e["stale"], e["live"]
+            if stale is not None:
+                n_stale += int(stale.sum())
+                for j in np.flatnonzero(stale).tolist():
+                    r = results[e["work"][j][0]]
+                    r.old_line = True
+                    r.rule_results = []
+            failpoints.check("matcher.resolve")
+            try:
+                with self.clock("chunk"):
+                    fw.resolve(e["pend"])
+            except PipelineOverflow as ov:
+                self.pipelined_fused_fallbacks += 1
+                self._pipeline_fallback_entry(e, ov, results, live=live)
+                continue
+            with self.clock("chunk"):
+                res = fw.collect(e["pend"])
+            self._replay_window_events(e["work"], None, (res.matched_pairs, res.always_bits),
+                                       res.events, results, live_rows=live)
+            self.pipelined_fused_chunks += 1
+        state["fused"] = None
+        return n_stale
 
     # ---- the fused path ----
 
@@ -454,6 +934,7 @@ class TorchMatcher(Matcher):
         buffer is pulled while chunk N+1 runs. An overflowing chunk drains
         every earlier chunk first, then replays classically before any
         later chunk is collected, so window updates keep log order."""
+        failpoints.check("matcher.device")
         fw = self._fw_pipeline
         chunks = [
             (work[s : s + self._max_batch],
@@ -544,10 +1025,10 @@ class TorchMatcher(Matcher):
                     raise
             return uslots[uinv]
 
-    def _submit_pipeline_chunk(self, work, cls_ids, lens):
-        """Allocate slots and run the chunk's program; None when slot
-        allocation refuses. Pins pass to the pipeline's submit, which
-        releases them itself if it fails."""
+    def _submit_pipeline_chunk(self, work, cls_ids, lens, live=None):
+        """Allocate slots and run the chunk's program (`live`: its commit
+        mask); None when slot allocation refuses. Pins pass to the
+        pipeline's submit, which releases them itself if it fails."""
         slots = self._slots_for_work(work)
         if slots is None:
             return None
@@ -558,7 +1039,8 @@ class TorchMatcher(Matcher):
             self.device_windows.release_pins(slots)
             raise
         with self.clock("chunk"):
-            pend = self._fw_pipeline.submit(cls_ids, lens, slots, ts_s, ts_ns, host_idx)
+            pend = self._fw_pipeline.submit(cls_ids, lens, slots, ts_s, ts_ns, host_idx,
+                                            live=live)
         return {"work": work, "cls": cls_ids, "lens": lens, "slots": slots,
                 "ts_s": ts_s, "ts_ns": ts_ns, "host_idx": host_idx, "pend": pend}
 
@@ -589,13 +1071,15 @@ class TorchMatcher(Matcher):
 
         self._with_window_slots(work, *make(cls_ids, lens), results)
 
-    def _pipeline_fallback_entry(self, e, ov, results) -> None:
-        """Classic replay of one gated chunk (every earlier chunk applied)."""
+    def _pipeline_fallback_entry(self, e, ov, results, live=None) -> None:
+        """Classic replay of one gated chunk (every earlier chunk applied).
+        `live` (bool [n] or None) masks rows the staleness cut dropped out
+        of both the window apply and the replay."""
         with self.clock("chunk"):
-            replay = self._pipeline_fallback_apply(e, ov)
-        self._replay_window_events(e["work"], *replay, results)
+            replay = self._pipeline_fallback_apply(e, ov, live)
+        self._replay_window_events(e["work"], *replay, results, live_rows=live)
 
-    def _pipeline_fallback_apply(self, e, ov):
+    def _pipeline_fallback_apply(self, e, ov, live=None):
         """The fallback's match and window apply -> (bits, sparse, events)
         for the replay."""
         dw = self.device_windows
@@ -605,10 +1089,15 @@ class TorchMatcher(Matcher):
             if ov.candidate_overflow:
                 # stage 2 never saw the excess lines: full single-stage match
                 bits = self._single_stage_bits(n, e["cls"], e["lens"], np.arange(n))
+                if live is not None:
+                    bits = bits * live[:, None].astype(np.uint8)
                 apply_bits = bits
             else:
                 # the dense bitmap is complete: apply it from the device
                 apply_bits = pend.bits_dev[:n]
+                if live is not None:
+                    apply_bits = apply_bits * torch.from_numpy(
+                        live.astype(np.uint8)).to(apply_bits.device)[:, None]
                 bits = None
         except Exception:
             dw.release_pins(e["slots"])
@@ -625,6 +1114,8 @@ class TorchMatcher(Matcher):
             return None, (pend.matched_pairs, pend.always_bits), events
         if bits is None:
             bits = pend.bits_dev[:n].cpu().numpy()
+            if live is not None:
+                bits = bits * live[:, None].astype(np.uint8)
         return bits, None, events
 
     # ---- replay ----
@@ -647,13 +1138,15 @@ class TorchMatcher(Matcher):
                 row_ids.setdefault(int(row), set()).add(int(plan.a_idx[col]))
         return row_ids
 
-    def _replay_window_events(self, work, bits, sparse, events, results) -> None:
+    def _replay_window_events(self, work, bits, sparse, events, results,
+                              live_rows=None) -> None:
         """Window events + match bookkeeping into ConsumeLineResults
-        (per-site-then-global rule order, Banner per exceeded event)."""
+        (per-site-then-global rule order, Banner per exceeded event).
+        `live_rows` (bool [n]) skips rows the staleness cut dropped."""
         with self.clock("replay"):
-            self._replay_body(work, bits, sparse, events, results)
+            self._replay_body(work, bits, sparse, events, results, live_rows)
 
-    def _replay_body(self, work, bits, sparse, events, results) -> None:
+    def _replay_body(self, work, bits, sparse, events, results, live_rows) -> None:
         if self.traffic_sketch is not None and events:
             # per-rule pressure, where every path's fired events land
             with self.clock("sketch"):
@@ -665,6 +1158,8 @@ class TorchMatcher(Matcher):
         else:
             row_any = bits.any(axis=1)
             row_iter = [r for r in range(len(work)) if row_any[r]]
+        if live_rows is not None:
+            row_iter = [r for r in row_iter if live_rows[r]]
         for row in row_iter:
             i, p = work[row]
             pos = self._rule_pos(p.host)
@@ -754,21 +1249,36 @@ class TorchMatcher(Matcher):
         single-stage match when it is off or overflows) for device rows,
         host `re` for host_eval rows and unlowerable rules. `encoded` is
         (cls_ids, lens, host_eval), or None to encode here."""
+        return self._match_bits_collect(self._match_bits_submit(work, encoded))
+
+    def _match_bits_submit(self, work, encoded) -> dict:
+        """Dispatch the match of a work batch without waiting for the card;
+        `_match_bits_collect` completes it (the pipeline's classic pend
+        submits on its device stage and collects later)."""
+        failpoints.check("matcher.device")
         n = len(work)
         if encoded is None:
             encoded = encode_for_match(self.compiled, [p.rest for _, p in work], self._max_len)
         cls_ids, lens, host_eval = encoded
-        device_rows = np.flatnonzero(~host_eval)
+        pend = {"n": n, "work": work, "cls": cls_ids, "lens": lens, "host_eval": host_eval,
+                "device_rows": np.flatnonzero(~host_eval), "chunks": None}
         if self._prefilter is not None:
             dev_lens = np.where(host_eval, 0, lens)
-            chunks = [
+            pend["chunks"] = [
                 (sl, self._prefilter.submit(cls_ids[sl], dev_lens[sl]))
                 for sl in (slice(s, min(n, s + self._max_batch))
                            for s in range(0, n, self._max_batch))
             ]
+        return pend
+
+    def _match_bits_collect(self, pend: dict) -> np.ndarray:
+        n, work = pend["n"], pend["work"]
+        cls_ids, lens, host_eval = pend["cls"], pend["lens"], pend["host_eval"]
+        device_rows = pend["device_rows"]
+        if pend["chunks"] is not None:
             try:
                 bits = np.zeros((n, self.compiled.n_rules), dtype=np.uint8)
-                for sl, p in chunks:
+                for sl, p in pend["chunks"]:
                     bits[sl] = self._prefilter.collect(p)
                 # a zero-length row contributes no device bits
                 bits[host_eval] = 0

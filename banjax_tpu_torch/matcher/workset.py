@@ -1,6 +1,6 @@
 """Work batches of the matcher's host path (copies of `LazyResults`,
-`LazyLine`, `NativeWork`, `ListWork` and `unique_spans` from
-`banjax_tpu/matcher/workset.py`).
+`LazyLine`, `NativeWork`, `ListWork`, `CompositeWork` and `unique_spans`
+from `banjax_tpu/matcher/workset.py`).
 
 `NativeWork` keeps a natively parsed batch columnar: numpy row indices
 and unique-string tables, with per-row Python objects made only for the
@@ -10,7 +10,8 @@ Python parse path in the same interface:
 len(work); work[int] -> (orig_index, line); work[slice] and
 work.take(index array) -> the same kind; unique_ips() -> (distinct ips in
 first-appearance order, per-row inverse); host_idx(host_row) -> int32
-per row; ts_array() -> int64 ns per row.
+per row; ts_array() -> int64 ns per row. `CompositeWork` joins the
+work sets of the sharded encode's row shards in line order.
 """
 
 from __future__ import annotations
@@ -27,10 +28,11 @@ class LazyResults:
     """List-compatible ConsumeLineResult vector that materializes entries
     on first access (most lines of a batch are never touched)."""
 
-    __slots__ = ("_items",)
+    __slots__ = ("_items", "_n_set")
 
     def __init__(self, n: int):
         self._items = [None] * n
+        self._n_set = 0
 
     def __len__(self) -> int:
         return len(self._items)
@@ -43,11 +45,24 @@ class LazyResults:
             from banjax_tpu_torch.matcher.api import ConsumeLineResult
 
             r = self._items[i] = ConsumeLineResult()
+            self._n_set += 1
         return r
 
     def __iter__(self):
         for k in range(len(self._items)):
             yield self[k]
+
+    def absorb(self, other: "LazyResults", row0: int) -> None:
+        """Copy `other`'s materialized entries in at row offset `row0` (the
+        sharded encode's merge); untouched rows stay lazy, and a shard
+        that materialized nothing costs nothing."""
+        if other._n_set == 0:
+            return
+        dst = self._items
+        for i, r in enumerate(other._items):
+            if r is not None:
+                dst[row0 + i] = r
+        self._n_set += other._n_set
 
 
 class LazyLine:
@@ -169,6 +184,77 @@ class ListWork(list):
 
     def take(self, idx) -> "ListWork":
         return ListWork(list.__getitem__(self, int(i)) for i in idx)
+
+
+class CompositeWork:
+    """Line-order concatenation of per-shard work sets: `offsets[j]` is the
+    batch row where part j's shard starts, so the (orig_index, line) pairs
+    it yields carry global batch rows. unique_ips() merges the parts'
+    first-appearance tables in shard order, which is the global
+    first-appearance order (slot assignment depends on it). Positional
+    subsets take ascending indices, as every caller passes."""
+
+    __slots__ = ("parts", "offsets", "_starts")
+
+    def __init__(self, parts: List, offsets: List[int]):
+        self.parts = parts
+        self.offsets = offsets
+        self._starts = np.cumsum([0] + [len(w) for w in parts])
+
+    def __len__(self) -> int:
+        return int(self._starts[-1])
+
+    def __getitem__(self, k):
+        if isinstance(k, slice):
+            return self.take(np.arange(*k.indices(len(self)), dtype=np.int64))
+        j = int(np.searchsorted(self._starts, k, side="right")) - 1
+        i, p = self.parts[j][k - int(self._starts[j])]
+        return self.offsets[j] + i, p
+
+    def __iter__(self):
+        for j, w in enumerate(self.parts):
+            off = self.offsets[j]
+            for i, p in w:
+                yield off + i, p
+
+    def take(self, idx):
+        idx = np.asarray(idx, dtype=np.int64)
+        parts: List = []
+        offsets: List[int] = []
+        for j, w in enumerate(self.parts):
+            lo, hi = int(self._starts[j]), int(self._starts[j + 1])
+            sel = idx[(idx >= lo) & (idx < hi)] - lo
+            if sel.size:
+                parts.append(w.take(sel))
+                offsets.append(self.offsets[j])
+        if not parts:
+            return ListWork()
+        if len(parts) == 1 and offsets[0] == 0:
+            return parts[0]
+        return CompositeWork(parts, offsets)
+
+    def unique_ips(self) -> Tuple[List[str], np.ndarray]:
+        merged: Dict[str, int] = {}
+        strings: List[str] = []
+        invs = []
+        for w in self.parts:
+            ips_u, inv = w.unique_ips()
+            remap = np.empty(len(ips_u), dtype=np.int64)
+            for j, s in enumerate(ips_u):
+                g = merged.get(s)
+                if g is None:
+                    g = len(strings)
+                    merged[s] = g
+                    strings.append(s)
+                remap[j] = g
+            invs.append(remap[np.asarray(inv, dtype=np.int64)])
+        return strings, np.concatenate(invs)
+
+    def host_idx(self, host_row: Dict[str, int]) -> np.ndarray:
+        return np.concatenate([w.host_idx(host_row) for w in self.parts])
+
+    def ts_array(self) -> np.ndarray:
+        return np.concatenate([w.ts_array() for w in self.parts])
 
 
 def unique_spans(offs: np.ndarray, lens: np.ndarray, blob: bytes, text,

@@ -112,10 +112,12 @@ class ParseScratch:
     """Reusable output buffers for parse_encode_batch (plain host memory).
 
     The returned ParsedBatch views alias the scratch: they are valid until
-    the next parse with the same scratch. TorchMatcher consumes each batch
-    before it parses the next, and every transfer to the card starts from
-    a copy (`prefilter._assemble`), so no copy in flight reads a buffer
-    the next parse overwrites."""
+    the next parse with the same scratch. TorchMatcher's synchronous path
+    consumes each batch before it parses the next, and every transfer to
+    the card starts from a copy (`prefilter._assemble`), so no copy in
+    flight reads a buffer the next parse overwrites. The pipeline's split
+    path, which has batches in flight, parses without a scratch (fresh
+    buffers a batch)."""
 
     def __init__(self):
         self.cap = 0
@@ -150,12 +152,15 @@ def parse_encode_batch(
     lines, byte_to_class: np.ndarray, max_len: int,
     now_unix: float, old_cutoff: float,
     scratch: Optional[ParseScratch] = None,
+    max_threads: Optional[int] = None,
 ) -> Optional[ParsedBatch]:
     """One native pass over a batch of log lines: the splits, timestamp,
     staleness and host-eval routing of parse_line, plus the byte-class
     encode of each `rest`. None when a line holds an embedded newline
     (the caller parses that batch in Python). Raises when the library
-    cannot be built or loaded. With `scratch`, outputs alias it."""
+    cannot be built or loaded. With `scratch`, outputs alias it.
+    `max_threads` caps the row-parallel fan-out (the sharded encode's
+    shards pass 1: they are already one thread each)."""
     lib = FASTPARSE.lib()
     blob = "\n".join(lines).encode("utf-8", "surrogatepass")
     n = len(lines)
@@ -192,7 +197,8 @@ def parse_encode_batch(
             _P(s.cls_ids[i0:], _i32p), _P(s.lens[i0:], _i32p),
         )
 
-    nt = min(_PARSE_THREADS, max(1, n // _MIN_ROWS_PER_THREAD))
+    limit = _PARSE_THREADS if max_threads is None else max(1, max_threads)
+    nt = min(limit, max(1, n // _MIN_ROWS_PER_THREAD))
     if nt <= 1:
         run_range(0, n)
     else:

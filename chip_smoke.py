@@ -77,6 +77,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import gc
 import hashlib
 import io
 import json
@@ -157,6 +158,25 @@ SERVICE = dict(
     per_kind=2048,
     cross_check=1024,      # requests replayed into an app on the CPU
     warmup_lines=64,
+)
+# the service's app and writes with pipeline_enabled: true and the deploy
+# file's pipeline keys (ring 4, latency budget 250 ms, buffer 131,072
+# lines, max block 50 ms, encode_workers -1, drain_resolve_depth 2); then
+# the fault drill on a second pipelined app, its breaker recovery and
+# probe shortened, with writes of drill_lines filler lines
+PIPELINE = dict(
+    n_rules=1000,
+    batch_lines=4096,
+    capacity=65536,
+    warm_capacity=131_072,
+    writes=16,
+    rotate_after=8,
+    n_offenders=40,
+    offender_hits=40,
+    warmup_lines=64,
+    drill_lines=32,
+    drill_recovery_s=3.0,
+    drill_probe_s=1.0,
 )
 SHA_HOST = "sha.example"   # the one host in sitewide_sha_inv_list (block)
 LOG_HOST = "example.org"
@@ -960,25 +980,51 @@ def run_pow_dispatch(dev, lane_counts, calls, load=None) -> dict:
     routes = {"old": old, "new": verifier._device_bits}
     rng = random.Random(SEED)
 
-    def per_call_us(fn):
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        return 1e6 * (time.perf_counter() - t0) / calls
+    @contextlib.contextmanager
+    def collector_off():
+        # A full collection of this process's heap takes ~110-210 ms on
+        # the H100 host (`collector` below, PERF.md §7): landing in a
+        # 1,000-call turn, it adds as many µs to that turn's mean, whatever
+        # the route. As timeit does, the collector is off while a turn is
+        # timed.
+        gc.disable()
+        try:
+            yield
+        finally:
+            gc.enable()
 
+    def per_call_us(fn):
+        with collector_off():
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            return 1e6 * (time.perf_counter() - t0) / calls
+
+    # what one full collection of the heap costs here (the phase's rows
+    # are timed with the collector off, see collector_off)
+    t0 = time.perf_counter()
+    gc.collect()
+    collector = {"full_collect_ms": 1e3 * (time.perf_counter() - t0),
+                 "tracked_objects": len(gc.get_objects())}
     rows = {}
     for lanes in lane_counts:
         batches = [[rng.randbytes(52) for _ in range(lanes)] for _ in range(8)]
         wants = [[cpu_zero_bits(p) for p in b] for b in batches]
-        row = {"lanes": lanes, "old_us": [], "new_us": []}
+        # max_call_us: a turn's longest single call (a stall shows there)
+        row = {"lanes": lanes, "old_us": [], "new_us": [], "max_call_us": []}
         for route in ("old", "new", "new", "old"):
             fn = routes[route]
             fn(batches[0])
             got = []
-            t0 = time.perf_counter()
-            for k in range(calls):
-                got.append(fn(batches[k % 8]))
-            row[f"{route}_us"].append(1e6 * (time.perf_counter() - t0) / calls)
+            longest = 0.0
+            with collector_off():
+                t0 = t_prev = time.perf_counter()
+                for k in range(calls):
+                    got.append(fn(batches[k % 8]))
+                    t = time.perf_counter()
+                    longest, t_prev = max(longest, t - t_prev), t
+            row[f"{route}_us"].append(1e6 * (t_prev - t0) / calls)
+            row["max_call_us"].append(1e6 * longest)
             check(all(g == wants[k % 8] for k, g in enumerate(got)),
                   f"the {route} route agrees with hashlib at {lanes} lanes")
         if d is not None:
@@ -1014,7 +1060,8 @@ def run_pow_dispatch(dev, lane_counts, calls, load=None) -> dict:
                 loaded.append({"load": kind, "route": route, "us": us,
                                "load_pending_at_return": pending,
                                "load_ms": 1e3 * (time.perf_counter() - t_load)})
-    emit({"phase": "pow_dispatch", "calls": calls, "shapes": rows, "under_load": loaded,
+    emit({"phase": "pow_dispatch", "calls": calls, "collector": collector,
+          "shapes": rows, "under_load": loaded,
           "load": {"none": "nothing queued",
                    "kernel_a": "20 launches of kernel A at the single-stage fallback's "
                                "shape, queued on the current stream",
@@ -1494,11 +1541,11 @@ def masked(raw: bytes) -> bytes:
 
 
 def service_config(workdir: str, patterns, capacity: int, warm_capacity: int,
-                   batch_lines: int, name: str) -> str:
+                   batch_lines: int, name: str, **keys) -> str:
     """The deploy file with its log paths moved into `workdir`, hmac_secret
     set and SHA_HOST in sitewide_sha_inv_list (as `challenge_config`), the
-    generated rules, and the cuts of `tiering` (slots, warm records);
-    returns the path of the YAML written."""
+    generated rules, and the cuts of `tiering` (slots, warm records), then
+    `keys`; returns the path of the YAML written."""
     import os
 
     import yaml
@@ -1517,6 +1564,7 @@ def service_config(workdir: str, patterns, capacity: int, warm_capacity: int,
         hmac_secret="chip-smoke-secret", sitewide_sha_inv_list={SHA_HOST: "block"},
         standalone_testing=False,
     )
+    raw.update(keys)
     open(raw["server_log_file"], "a").close()
     path = os.path.join(workdir, name + ".yaml")
     with open(path, "w") as f:
@@ -1529,16 +1577,37 @@ def percentile(xs, q: float):
     return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
 
 
+def stamped(part):
+    """A write's lines stamped over the second before now."""
+    t = time.time()
+    return [f"{t - 1 + j / len(part):.6f} {x}" for j, x in enumerate(part)]
+
+
+def wait_for(cond, what: str, timeout_s: float) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"timed out waiting for {what}")
+        time.sleep(0.0005)
+
+
+def append_lines(path: str, lines) -> None:
+    with open(path, "a") as f:
+        f.write("\n".join(lines) + "\n")
+
+
 def run_service(dev, n_rules, batch_lines, capacity, warm_capacity, writes, rotate_after,
                 n_offenders, offender_hits, threads, per_kind, cross_check, warmup_lines,
-                alone_requests=256, timeout_s=300.0) -> dict:
+                alone_requests=256, timeout_s=300.0):
     """The service on device `dev`: `BanjaxApp` from the deploy file tails
     an access log (the writes, one rotation), bans into its ban log and
     decision table, and answers `/auth_request` on an ephemeral port to
     `threads` keep-alive clients; then a reload; then the same lines
     through `TorchMatcher.consume_lines` directly, and a prefix of the
     requests replayed into a `device="cpu"` app. Returns the phase's
-    launches of kernels A, B and C. Raises on any failed check."""
+    launches of kernels A, B and C, and what the `pipeline` phase sets
+    beside its own figures (lines/s, latency, the request prefix and its
+    answers). Raises on any failed check."""
     import os
     import tempfile
     import weakref
@@ -1572,20 +1641,11 @@ def run_service(dev, n_rules, batch_lines, capacity, warm_capacity, writes, rota
     warm = [f"104.0.0.{j % 250 + 1} GET {LOG_HOST} GET /warm/{j} HTTP/1.1 Mozilla/5.0 -"
             for j in range(warmup_lines)]
 
-    def stamped(part):
-        t = time.time()
-        return [f"{t - 1 + j / len(part):.6f} {x}" for j, x in enumerate(part)]
-
     def wait(cond, what):
-        deadline = time.monotonic() + timeout_s
-        while not cond():
-            if time.monotonic() > deadline:
-                raise RuntimeError(f"timed out waiting for {what}")
-            time.sleep(0.0005)
+        wait_for(cond, what, timeout_s)
 
     def append(lines):
-        with open(log_path, "a") as f:
-            f.write("\n".join(lines) + "\n")
+        append_lines(log_path, lines)
 
     nfa_match.KERNEL.launches = fmw.KERNEL.launches = pow_verify.KERNEL.launches = 0
     t0 = time.perf_counter()
@@ -1649,6 +1709,9 @@ def run_service(dev, n_rules, batch_lines, capacity, warm_capacity, writes, rota
                     latency[ip] = t_done - appended_at[k]
         check(app.tailer.errors == 0, f"no tailer error ({app.tailer.last_error!r})")
         check(len(latency) == len(offenders), "every offender was banned by the log path")
+        # batches over the deploy file's matcher_latency_budget_ms (counted,
+        # not breaker failures in the port)
+        budget_trips = app._matcher.budget_trips
 
         # ---- /auth_request: log-path bans (fast-path hits), cookieless
         # challengers and solved cookies (the chain, kernel C) ----
@@ -1816,6 +1879,7 @@ def run_service(dev, n_rules, batch_lines, capacity, warm_capacity, writes, rota
         "wrong_statuses": len(wrong), "first_wrong": wrong[:3],
         "fastpath_hits": hits, "fastpath_misses": misses, "serve_stats": stats,
         "launches": launches, "device_memory_bytes": mem, "tailer_errors": tailer_errors,
+        "budget_trips": budget_trips,
         "cpu_replay": {"requests": len(cpu_answers), "differing": len(replay_diff),
                        "first_differing": replay_diff[:3], "seconds": cross_s,
                        "fastpath_hits": cpu_stats["hits_total"]},
@@ -1833,6 +1897,341 @@ def run_service(dev, n_rules, batch_lines, capacity, warm_capacity, writes, rota
           <= 0.05 * mem["before_reload"], "device memory is back after the reload")
     check(not replay_diff and cpu_stats["faults_total"] == cpu_stats["fail_open_total"] == 0,
           "the CPU app answers the prefix identically")
+    return launches, {
+        "lines_per_s": writes * batch_lines / log_wall,
+        "line_to_ban_ms": {"p50": 1e3 * percentile(lat, 0.5), "p99": 1e3 * percentile(lat, 0.99)},
+        "host_us_per_line_by_stage": stages,
+        "prefix": flat[:cross_check], "prefix_answers": answers[:cross_check],
+    }
+
+
+def http_json(port: int, method: str, path: str, body=None):
+    """(status, decoded JSON) of one admin request to the app."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data, headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def run_pipeline(dev, service, n_rules, batch_lines, capacity, warm_capacity, writes,
+                 rotate_after, n_offenders, offender_hits, warmup_lines, drill_lines,
+                 drill_recovery_s, drill_probe_s, timeout_s=300.0) -> dict:
+    """The service's app and writes with `pipeline_enabled: true` on device
+    `dev`: the tailer submits to the scheduler, whose device thread runs
+    kernels A and B and whose drain thread writes the ban log. The ban log
+    must equal `TorchMatcher.consume_lines` on the scheduler's batches, the
+    service phase's request prefix must answer as it did there, and shed,
+    stale, drain-error, breaker-trip, fast-path-fault and tailer-error
+    counts must read 0. Then the fault drill on a second pipelined app
+    (breaker recovery and probe shortened), through /debug/failpoints:
+    `pipeline.submit` for two batches (the ban log stays the synchronous
+    path's), then, after a reload, `matcher.device` for
+    breaker_failure_threshold firings (the breaker opens, health reads
+    degraded, the refused lines are counted exactly, the probe closes it,
+    and a later write's bans land). Returns the phase's launches of A, B
+    and C. Raises on any failed check."""
+    import os
+    import tempfile
+
+    from banjax_tpu_torch import workload
+    from banjax_tpu_torch.cli import BanjaxApp, build_matcher
+    from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
+    from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
+    from banjax_tpu_torch.effectors.banner import Banner
+    from banjax_tpu_torch.matcher.kernels import fused_match_window as fmw
+    from banjax_tpu_torch.matcher.kernels import nfa_match, pow_verify
+    from banjax_tpu_torch.resilience import failpoints
+
+    kernels = {"nfa_match": nfa_match.KERNEL, "window_scan": fmw.KERNEL,
+               "pow_verify": pow_verify.KERNEL}
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    workdir_obj = tempfile.TemporaryDirectory(prefix="pipeline-", dir=os.path.join(here, "build"))
+    workdir = workdir_obj.name
+    patterns = workload.generate_rules(n_rules, seed=SEED)
+    stream = workload.access_log(writes * batch_lines, patterns, time.time(), seed=SEED + 1,
+                                 n_offenders=n_offenders, offender_hits=offender_hits)
+    stream = [ln.split(" ", 1)[1] for ln in stream]
+    offenders = {f"203.0.{k // 250}.{k % 250 + 1}" for k in range(n_offenders)}
+    warm = [f"104.0.0.{j % 250 + 1} GET {LOG_HOST} GET /warm/{j} HTTP/1.1 Mozilla/5.0 -"
+            for j in range(warmup_lines)]
+
+    def start_app(name, **keys):
+        path = service_config(workdir, patterns, capacity, warm_capacity, batch_lines, name,
+                              pipeline_enabled=True, **keys)
+        app = BanjaxApp(path, device=dev)
+        # every drained batch: its lines, when, the write it came from,
+        # whether it was processed, and the bans it made
+        rec = {"batches": [], "bans": 0, "write": None, "targets": []}
+
+        def on_results(lines, results):
+            bans = app.banner.bans
+            new, rec["bans"] = bans[rec["bans"]:], len(bans)
+            rec["batches"].append((lines, time.time(), rec["write"], results is not None, new))
+            rec["targets"].append(app.pipeline._sizer.target())
+
+        app.pipeline.on_results = on_results
+        app.start_background(port=0)
+        wait_for(app.tailer.opened.is_set, "the tailer to open the log", timeout_s)
+        return app, rec, os.path.join(workdir, name + ".log")
+
+    def drained(rec):
+        return sum(len(b[0]) for b in rec["batches"])
+
+    def write(app, rec, log_path, lines, tag, k=None):
+        rec["write"] = k
+        target = drained(rec) + len(lines)
+        t = time.time()
+        append_lines(log_path, lines)
+        wait_for(lambda: drained(rec) >= target, tag, timeout_s)
+        return t
+
+    def replay(cfg, batches):
+        """The batches through a synchronous TorchMatcher on the card."""
+        log_text = io.StringIO()
+        m = build_matcher(cfg, Banner(DynamicDecisionLists(start_sweeper=False), log_text,
+                                      io.StringIO()), StaticDecisionLists(cfg), device=dev)
+        for lines, t_done, *_ in batches:
+            m.consume_lines(lines, now_unix=t_done)
+        m.close()
+        return log_text.getvalue()
+
+    # ---- the pipelined service: the writes, one rotation, the prefix ----
+    t0 = time.perf_counter()
+    app, rec, log_path = start_app("pipe")
+    setup_s = time.perf_counter() - t0
+    try:
+        t_w = time.perf_counter()
+        write(app, rec, log_path, stamped(warm), "the warm-up batch")
+        first_build_s = time.perf_counter() - t_w
+        for kern in kernels.values():
+            kern.reset_launches()
+        app._matcher.clock.reset()
+        app.pipeline.stats.reset_e2e()
+        st0 = dict(app.pipeline.stats.stage_seconds)
+        appended_at = {}
+        t_log = time.perf_counter()
+        for k in range(writes):
+            appended_at[k] = write(app, rec, log_path,
+                                   stamped(stream[k * batch_lines : (k + 1) * batch_lines]),
+                                   f"pipelined write {k + 1}", k)
+            if k + 1 == rotate_after:
+                os.replace(log_path, log_path + ".1")
+                open(log_path, "w").close()
+        log_wall = time.perf_counter() - t_log
+        launches = {n: kern.launches for n, kern in kernels.items()}
+        by_thread = {n: dict(kern.launches_by_thread) for n, kern in kernels.items()}
+        n_lines = writes * batch_lines
+        stages = stage_us(app._matcher, n_lines)
+        stages_by_thread = {th: {st: v * 1e6 / n_lines for st, v in sorted(d.items())}
+                            for th, d in sorted(app._matcher.clock.by_thread.items())}
+        pstats = app.pipeline.stats
+        busy = {st: (v - st0.get(st, 0.0)) / log_wall
+                for st, v in sorted(pstats.stage_seconds.items())}
+        workers = {"workers": app.pipeline.encode_workers,
+                   "sharded_batches": pstats.encode_sharded_batches,
+                   "busy_fraction_of_run": [v / log_wall for v in pstats.worker_seconds],
+                   "busy_fraction_of_fanout_ewma": pstats.worker_busy_fractions()}
+        latency = {}
+        for _, t_done, k, _, bans in rec["batches"]:
+            for ip, _, _ in bans:
+                if ip in offenders and ip not in latency and k is not None:
+                    latency[ip] = t_done - appended_at[k]
+        lat = sorted(latency.values())
+        targets = rec["targets"][1:]
+        n_batches = len(rec["batches"]) - 1
+        ring_size = app.pipeline.ring_size
+        with open(app.banner._ban_log.name) as f:
+            ban_log = f.read()
+        # the service phase's request prefix, answered by this app
+        c = HttpClient(app.port)
+        try:
+            answers = [c.get(ip, host, cookie) for ip, host, cookie, _ in service["prefix"]]
+        finally:
+            c.close()
+        prefix_diff = [i for i, a in enumerate(answers)
+                       if masked(a) != masked(service["prefix_answers"][i])]
+        flush_ok = app.pipeline.flush(timeout_s)
+        totals = pstats.peek()
+        matcher = app._matcher
+        counters = {
+            "shed": totals["PipelineShedLines"], "stale": totals["PipelineStaleDroppedLines"],
+            "drain_errors": totals["PipelineDrainErrorLines"],
+            "breaker_trips": matcher.breaker.trip_count, "refused_lines": matcher.refused_lines,
+            "fastpath_faults": app.serve_stats.snapshot()["faults_total"],
+            "fail_open": app.serve_stats.snapshot()["fail_open_total"],
+            "tailer_errors": app.tailer.errors,
+        }
+        e2e = pstats.e2e_percentiles()
+        budget_trips = matcher.budget_trips
+        matcher_batches = matcher.stats.peek()
+        cfg = app.config_holder.get()
+    finally:
+        app.stop_background()
+    t_d = time.perf_counter()
+    direct_log = replay(cfg, rec["batches"])
+    direct_s = time.perf_counter() - t_d
+
+    # ---- the fault drill ----
+    t_f = time.perf_counter()
+    off1 = [x for x in stream if x.startswith("203.0.0.1 ")]
+    off2 = [x for x in stream if x.startswith("203.0.0.2 ")]
+    filler = [x for x in stream if x.split(" ", 1)[0] not in offenders]
+    dapp, drec, dlog = start_app("drill", breaker_recovery_seconds=drill_recovery_s,
+                                 matcher_probe_seconds=drill_probe_s)
+    drill = {}
+    try:
+        write(dapp, drec, dlog, stamped(warm), "the drill's warm-up batch")
+        code, body = http_json(dapp.port, "POST", "/debug/failpoints",
+                               {"arm": [{"name": "pipeline.submit", "count": 2}]})
+        check(code == 200 and [a["name"] for a in body["armed"]] == ["pipeline.submit"],
+              "/debug/failpoints armed pipeline.submit")
+        n_b = len(drec["batches"])
+        quarter = len(off1) // 4
+        for k in range(4):
+            part = (off1[k * quarter : (k + 1) * quarter]
+                    + filler[k * drill_lines : (k + 1) * drill_lines])
+            write(dapp, drec, dlog, stamped(part), f"drill write {k + 1}")
+        s1 = dapp.pipeline.stats.peek()
+        drill["submit"] = {
+            "batches": len(drec["batches"]) - n_b, "fired": failpoints.fired_count("pipeline.submit"),
+            "fallback_batches": s1["PipelineFallbackBatches"],
+            "drain_errors": s1["PipelineDrainErrorLines"],
+            "breaker_trips": dapp._matcher.breaker.trip_count,
+        }
+        with open(dapp.banner._ban_log.name) as f:
+            submit_ban_log = f.read()
+        submit_batches = list(drec["batches"])
+        drill_cfg = dapp.config_holder.get()
+        # a reload: the matcher (and its breaker) is rebuilt between batches
+        gen0 = dapp._matcher_generation
+        dapp.reload()
+        write(dapp, drec, dlog, stamped(filler[-drill_lines:]), "the batch after the reload")
+        check(dapp._matcher_generation == gen0 + 1, "the reload rebuilt the drill's matcher")
+        threshold = dapp._matcher.breaker.failure_threshold
+        # whether each failed device stage had committed something (the
+        # slot-refused rows' host steps): such a batch drains through
+        # pipeline_finish instead of a whole rerun
+        recovered = []
+        recover = dapp._matcher.pipeline_recover
+        dapp._matcher.pipeline_recover = lambda st: recovered.append(recover(st)) or recovered[-1]
+        code, body = http_json(dapp.port, "POST", "/debug/failpoints",
+                               {"arm": [{"name": "matcher.device", "count": threshold}]})
+        check(code == 200, "/debug/failpoints armed matcher.device")
+        s2 = dapp.pipeline.stats.peek()
+        n_b = len(drec["batches"])
+        sizes = []
+        for k in range(3):
+            part = stamped(filler[(4 + k) * drill_lines : (5 + k) * drill_lines])
+            sizes.append(len(part))
+            write(dapp, drec, dlog, part, f"drill fault write {k + 1}")
+        s3 = dapp.pipeline.stats.peek()
+        m = dapp._matcher
+        code, health = http_json(dapp.port, "GET", "/healthz")
+        t_open = time.perf_counter()
+        wait_for(lambda: m.breaker.state == "closed", "the probe to close the breaker",
+                 5 * drill_recovery_s + 10 * drill_probe_s)
+        close_s = time.perf_counter() - t_open
+        bans0 = len(dapp.banner.bans)
+        write(dapp, drec, dlog, stamped(off2), "the write after the breaker closed")
+        late_bans = [b for b in dapp.banner.bans[bans0:] if b[0] == "203.0.0.2"]
+        s4 = dapp.pipeline.stats.peek()
+        drill["device"] = {
+            "batches": len(drec["batches"]) - n_b - 1, "write_lines": sizes,
+            "fired": failpoints.fired_count("matcher.device"),
+            "healthz": {"code": code, "status": health["status"],
+                        "matcher": health["components"]["matcher"]},
+            "trips": m.breaker.trip_count, "refused_lines": m.refused_lines,
+            "refused_batches": m.refused_batches, "recovered": recovered,
+            "failed_lines": s3["PipelineDrainErrorLines"] - s2["PipelineDrainErrorLines"],
+            "probe_ok": dapp.pipeline.stats.probe_ok,
+            "probe_failed": dapp.pipeline.stats.probe_failed,
+            "seconds_to_close": close_s, "late_bans": len(late_bans),
+            "accounting": [s4["PipelineAdmittedLines"], s4["PipelineProcessedLines"],
+                           s4["PipelineShedLines"], s4["PipelineDrainErrorLines"]],
+        }
+        failpoints.disarm()
+    finally:
+        failpoints.disarm()
+        dapp.stop_background()
+    drill_direct_log = replay(drill_cfg, submit_batches)
+    drill_s = time.perf_counter() - t_f
+    workdir_obj.cleanup()
+
+    emit({
+        "phase": "pipeline",
+        "config": f"the service phase's (deploy/banjax-config.yaml, {n_rules} generated rules, "
+                  f"{capacity} slots, {warm_capacity} warm records) with pipeline_enabled: true "
+                  "and the deploy file's pipeline keys",
+        "setup_s": setup_s, "first_batch_with_matcher_build_s": first_build_s,
+        "writes": writes, "lines": n_lines, "log_wall_s": log_wall,
+        "lines_per_s": {"pipelined": n_lines / log_wall,
+                        "synchronous_service_phase": service["lines_per_s"]},
+        "line_to_ban_ms": {
+            "pipelined": {"p50": 1e3 * percentile(lat, 0.5), "p99": 1e3 * percentile(lat, 0.99)},
+            "synchronous_service_phase": service["line_to_ban_ms"]},
+        "tailer_read_to_drain_ms": {"n": e2e["n"], "p50": 1e3 * (e2e["p50_s"] or 0.0),
+                                    "p99": 1e3 * (e2e["p99_s"] or 0.0)},
+        "batches": n_batches,
+        "sizer_target": {"min": min(targets), "max": max(targets), "final": targets[-1]},
+        "max_inflight_batches": pstats.max_inflight, "ring_size": ring_size,
+        "encode": workers, "stage_thread_busy_fraction": busy,
+        "host_us_per_line_by_stage": stages, "host_us_per_line_by_thread": stages_by_thread,
+        "synchronous_host_us_per_line_by_stage": service["host_us_per_line_by_stage"],
+        "launches": launches, "launches_by_thread": by_thread,
+        "budget_trips": budget_trips, "matcher_batches": matcher_batches,
+        "counters": counters, "totals": totals,
+        "ban_log_lines": ban_log.count("\n"), "direct_ban_log_identical": direct_log == ban_log,
+        "direct_replay_s": direct_s,
+        "prefix_requests": len(answers), "prefix_differing": len(prefix_diff),
+        "first_differing": prefix_diff[:3], "drill": drill, "drill_s": drill_s,
+        "drill_ban_log_lines": submit_ban_log.count("\n"),
+        "drill_ban_log_identical": drill_direct_log == submit_ban_log,
+    })
+    check(flush_ok, "the pipeline drained")
+    check(direct_log == ban_log and ban_log.count("\n") > 0,
+          "the pipelined ban log equals TorchMatcher.consume_lines on the same batches")
+    check(len(latency) == len(offenders), "every offender was banned through the pipeline")
+    check(not prefix_diff, "the request prefix answers as in the service phase")
+    check(all(v == 0 for v in counters.values()),
+          f"shed, stale, drain errors, trips, faults and tailer errors are 0: {counters}")
+    check(totals["PipelineAdmittedLines"] == totals["PipelineProcessedLines"]
+          + totals["PipelineShedLines"] + totals["PipelineDrainErrorLines"],
+          "admitted == processed + shed + failed")
+    check(dev.type != "cuda" or (launches["nfa_match"] > 0 and launches["window_scan"] > 0
+                                 and by_thread["nfa_match"].get("pipeline-device", 0) > 0
+                                 and by_thread["window_scan"].get("pipeline-device", 0) > 0),
+          "kernels A and B launched from the scheduler's device thread")
+    d1, d2 = drill["submit"], drill["device"]
+    check(d1 == {"batches": 4, "fired": 2, "fallback_batches": 2, "drain_errors": 0,
+                 "breaker_trips": 0}, f"the pipeline.submit drill's counts: {d1}")
+    check(drill_direct_log == submit_ban_log and submit_ban_log.count("\n") > 0,
+          "the ban log through the pipeline.submit drill equals the synchronous path's")
+    # write 1 fails at submit and again in its rerun or recovery drain (2
+    # firings); write 2's firing opens the breaker: rerun whole, it is
+    # refused; recovered (it had committed), its drain finishes it. Write
+    # 3 is refused at the device stage
+    r2 = len(d2["recovered"]) == 2 and d2["recovered"][1]
+    check(d2["batches"] == 3 and d2["fired"] == threshold and d2["trips"] == 1
+          and len(d2["recovered"]) == 2
+          and d2["refused_batches"] == (1 if r2 else 2)
+          and d2["refused_lines"] == sizes[2] + (0 if r2 else sizes[1])
+          and d2["failed_lines"] == sizes[0] + sizes[2] + (0 if r2 else sizes[1]),
+          f"the matcher.device drill's counts: {d2}")
+    check(d2["healthz"]["code"] == 200 and d2["healthz"]["status"] == "degraded"
+          and d2["healthz"]["matcher"]["status"] == "degraded"
+          and "refused" in d2["healthz"]["matcher"].get("detail", ""),
+          "health read degraded while the breaker was open")
+    check(d2["probe_ok"] >= 1 and d2["late_bans"] > 0,
+          "the probe closed the breaker and a later write's bans landed")
+    acc = d2["accounting"]
+    check(acc[0] == acc[1] + acc[2] + acc[3], "the drill's accounting identity")
     return launches
 
 
@@ -1857,12 +2256,16 @@ def main() -> int:
         k["launches"] = main + tier_launches[k["name"]]
     kernels += run_challenge(dev, **CHALLENGE, load=load)
     t0 = time.perf_counter()
-    service = run_service(dev, **SERVICE)
+    service, service_summary = run_service(dev, **SERVICE)
     emit({"phase": "service_seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    pipeline = run_pipeline(dev, service_summary, **PIPELINE)
+    emit({"phase": "pipeline_seconds", "seconds": time.perf_counter() - t0})
     for k in kernels:
         k.setdefault("launches_by_path", {"challenge_path": k["launches"]})
         k["launches_by_path"]["service"] = service[k["name"]]
-        k["launches"] += service[k["name"]]
+        k["launches_by_path"]["pipeline"] = pipeline[k["name"]]
+        k["launches"] += service[k["name"]] + pipeline[k["name"]]
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {

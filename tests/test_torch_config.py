@@ -1,7 +1,8 @@
 """The port's config loader against the JAX schema: the deploy file loads,
 every key the JAX schema reads and the port does not is named (one
-warning, `Config.not_ported`), the service's keys are read with the JAX
-defaults and checks, and `http_workers` other than 0 is refused."""
+warning, `Config.not_ported`), the service's and the pipeline's keys are
+read with the JAX defaults and checks, `pipeline_enabled: true` loads,
+and `http_workers` other than 0 is refused."""
 
 import logging
 from pathlib import Path
@@ -21,6 +22,15 @@ SERVICE_KEYS = (
     "http_listen_host", "admin_token", "serve_fastpath_enabled",
     "serve_decision_table_capacity", "http_workers",
 )
+# the streaming pipeline's, the breaker's, the probe's, the failpoints' and
+# the sharded encode's keys
+PIPELINE_KEYS = (
+    "breaker_failure_threshold", "breaker_recovery_seconds", "matcher_latency_budget_ms",
+    "breaker_window_size", "failpoints", "failpoints_admin_enabled", "pipeline_enabled",
+    "pipeline_ring_size", "pipeline_latency_budget_ms", "pipeline_buffer_lines",
+    "pipeline_max_block_ms", "matcher_probe_seconds", "pipeline_fused", "pipeline_kafka",
+    "encode_workers", "drain_resolve_depth", "pipeline_command_take_max",
+)
 
 
 def _jax_keys():
@@ -38,6 +48,7 @@ def test_every_jax_schema_key_is_read_or_named_not_ported():
     assert read | port_config._NOT_PORTED_KEYS == jax_keys
     assert not read & port_config._NOT_PORTED_KEYS
     assert set(SERVICE_KEYS) <= read
+    assert set(PIPELINE_KEYS) <= read
 
 
 def test_deploy_file_names_exactly_the_keys_the_port_does_not_read(caplog):
@@ -48,8 +59,9 @@ def test_deploy_file_names_exactly_the_keys_the_port_does_not_read(caplog):
         cfg = config_from_yaml_text(text)
     assert cfg.not_ported == expected
     assert {"serve_fastpath_enabled", "server_log_file", "banning_log_file"}.isdisjoint(expected)
-    assert {"ipset_netlink_enabled", "breaker_failure_threshold", "matcher_backend",
-            "failpoints_admin_enabled", "kafka_command_topic"} <= set(expected)
+    assert {"ipset_netlink_enabled", "matcher_backend", "kafka_command_topic",
+            "metrics_log_file", "iptables_unbanner_seconds"} <= set(expected)
+    assert set(PIPELINE_KEYS).isdisjoint(expected)
     warnings = [r.getMessage() for r in caplog.records if "not ported" in r.getMessage()]
     assert warnings == ["not ported: " + ", ".join(expected)]
 
@@ -80,3 +92,53 @@ def test_service_keys_match_the_jax_schema():
 def test_service_keys_are_checked(text, match):
     with pytest.raises(ValueError, match=match):
         config_from_yaml_text(text)
+
+
+def test_deploy_not_ported_list_shrank_by_exactly_the_pipeline_keys():
+    """The keys this slice reads are the deploy file's pipeline, breaker,
+    probe and failpoint keys; what stays not ported is the rest."""
+    text = DEPLOY.read_text()
+    in_file = set(yaml.safe_load(text))
+    cfg = config_from_yaml_text(text)
+    before = sorted(k for k in in_file if k in _jax_keys() - (_port_read_keys() - set(PIPELINE_KEYS)))
+    assert sorted(set(before) - set(cfg.not_ported)) == sorted(in_file & set(PIPELINE_KEYS))
+    assert set(cfg.not_ported) <= set(before)
+
+
+def test_pipeline_keys_match_the_jax_schema():
+    text = DEPLOY.read_text()
+    jax_cfg = jax_schema.config_from_yaml_text(text)
+    cfg = config_from_yaml_text(text)
+    empty_jax, empty = jax_schema.config_from_yaml_text(""), config_from_yaml_text("")
+    for key in PIPELINE_KEYS:
+        assert getattr(cfg, key) == getattr(jax_cfg, key), key
+        assert getattr(empty, key) == getattr(empty_jax, key), key
+    on = "pipeline_enabled: true\nencode_workers: 2\ndrain_resolve_depth: 1\nfailpoints: x=error:1"
+    cfg_on, jax_on = config_from_yaml_text(on), jax_schema.config_from_yaml_text(on)
+    for key in PIPELINE_KEYS:
+        assert getattr(cfg_on, key) == getattr(jax_on, key), key
+    assert cfg_on.pipeline_enabled
+
+
+@pytest.mark.parametrize("text, match", [
+    ("pipeline_ring_size: 0", "pipeline_ring_size"),
+    ("encode_workers: -2", "encode_workers"),
+    ("pipeline_latency_budget_ms: 0", "pipeline_latency_budget_ms"),
+    ("pipeline_buffer_lines: 0", "pipeline_buffer_lines"),
+    ("pipeline_max_block_ms: -1", "pipeline_max_block_ms"),
+    ("matcher_probe_seconds: -1", "matcher_probe_seconds"),
+    ("breaker_failure_threshold: 0", "breaker_failure_threshold"),
+    ("breaker_recovery_seconds: -1", "breaker_recovery_seconds"),
+    ("matcher_latency_budget_ms: -5", "matcher_latency_budget_ms"),
+    ("breaker_window_size: 2", "breaker_window_size"),
+    ("drain_resolve_depth: 0", "drain_resolve_depth"),
+    ("pipeline_command_take_max: 0", "pipeline_command_take_max"),
+    ("pipeline_enabled: 1", "pipeline_enabled"),
+    ("failpoints: 3", "failpoints"),
+])
+def test_pipeline_keys_are_checked(text, match):
+    """Each bad value fails the port's load and the JAX schema's alike."""
+    with pytest.raises(ValueError, match=match):
+        config_from_yaml_text(text)
+    with pytest.raises(ValueError, match=match):
+        jax_schema.config_from_yaml_text(text)

@@ -218,7 +218,9 @@ def test_a_fault_in_the_sketch_or_the_gate_reaches_the_caller(monkeypatch, targe
 
 
 @pytest.mark.parametrize("text, key", [
-    ("pipeline_enabled: true", "pipeline_enabled"),
+    # the pipeline is ported: `true` loads (test_torch_config.py); a
+    # non-bool value is still refused
+    ("pipeline_enabled: 1", "pipeline_enabled"),
     ("matcher_mesh_devices: 4", "matcher_mesh_devices"),
     ("matcher_mesh_devices: -1", "matcher_mesh_devices"),
     ("slot_admission_enabled: true\ntraffic_sketch_enabled: false\n"
