@@ -32,8 +32,8 @@ every step of which is counted.  Dropped state always *under*-counts
 delay a ban, never conjure one out of a benign client within the
 oracle's window.
 
-A copy of `banjax_tpu/challenge/failures.py` without the flight-recorder
-notification on evictions (observability the port does not have yet).
+A copy of `banjax_tpu/challenge/failures.py`: an eviction storm notifies
+the flight recorder once per sketch epoch (`challenge-failure-storm`).
 With no `now_ns_fn` the clock is read as `time.time_ns()` at each call,
 so a caller can pin it.
 """
@@ -54,6 +54,7 @@ from banjax_tpu_torch.decisions.rate_limit import (
     RateLimitMatchType,
     RateLimitResult,
 )
+from banjax_tpu_torch.obs import flightrec
 from banjax_tpu_torch.obs.sketch import _CM_SEEDS, _fmix32_np, hash_ip
 
 _NS = 1_000_000_000
@@ -110,6 +111,7 @@ class BoundedFailedChallengeStates:
         self.spill_drops = 0       # collision losses — the only lossy step
         self.gate_skips = 0        # one-shot evictees the sketch kept out
         self.stale_drops = 0       # evictees whose window had already passed
+        self._notified_epoch = -1  # the sketch epoch of the last storm notice
 
     # ---- hashing ----
 
@@ -196,6 +198,14 @@ class BoundedFailedChallengeStates:
             self._spill_put(ip, state)
         else:
             self.gate_skips += 1  # one-shot churner: sketch remembers it
+        # one storm notice a sketch epoch (the recorder debounces further)
+        epoch = self._cm_epoch_start_ns
+        if self._notified_epoch != epoch:
+            self._notified_epoch = epoch
+            flightrec.notify(
+                "challenge-failure-storm",
+                f"evictions={self.evictions_total} entries={len(self._states)} max={self._max}",
+            )
 
     # ---- the reference surface ----
 

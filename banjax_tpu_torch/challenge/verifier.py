@@ -7,8 +7,10 @@ byte is part of the reference contract). Only the leading-zero count of
 `sha256(hmac || solution)` goes to the batched kernel
 (`matcher/kernels/pow_verify.py`, `csrc/pow_verify.cu`).
 
-A copy of `banjax_tpu/challenge/verifier.py` (without its failpoints),
-with deliberate differences:
+A copy of `banjax_tpu/challenge/verifier.py`, with its failpoint sites
+(`challenge.verify` raises into the server's fail-open middleware;
+`challenge.device_verify` fails a dispatch as a kernel fault would) and
+deliberate differences:
 
   * the selftest runs when the verifier is built, on its device, and a
     failed build or a mismatch RAISES: there is no verifier that quietly
@@ -52,6 +54,7 @@ from banjax_tpu_torch.crypto.challenge import (
 )
 from banjax_tpu_torch.device import DeviceLike, resolve_device
 from banjax_tpu_torch.matcher.kernels import pow_verify
+from banjax_tpu_torch.resilience import failpoints
 
 
 def cpu_zero_bits(payload: bytes) -> int:
@@ -97,6 +100,10 @@ class DeviceVerifier:
         pow_verify.pow_selftest(self.device, self._dispatcher)
 
     def _device_bits(self, payloads: Sequence[bytes]) -> List[int]:
+        # an armed `challenge.device_verify` fails the dispatch as a kernel
+        # fault would: counted in `faults` and raised to every caller (the
+        # JAX verifier falls back to hashlib here)
+        failpoints.check("challenge.device_verify")
         if self._dispatcher is not None:
             return self._dispatcher.bits(payloads)
         msg = pow_verify.pack_payloads(payloads, self.device)
@@ -203,7 +210,9 @@ def verify_sha_inv(
     invalid cookie with the reference's exact message text; the device
     only ever computes the zero-bit count, so decisions are the same
     whichever path ran. A fault of the verifier's dispatch raises
-    RuntimeError."""
+    RuntimeError. An armed `challenge.verify` failpoint raises into the
+    server's fail-open middleware, as in JAX."""
+    failpoints.check("challenge.verify")
     stats = challenge_stats.get_stats()
     try:
         hmac_from_client, solution_bytes, expiration_bytes = parse_cookie(cookie_string)

@@ -1,8 +1,7 @@
 """Entry points of the port: `build_matcher`, `build_decision_chain` and
 the single-process service around both, `BanjaxApp` (a copy of
-`banjax_tpu/cli.py`'s, without the fabric, Kafka, the metrics reporter,
-multi-process workers, the flight recorder and the SLO engine, none of
-which the port has).
+`banjax_tpu/cli.py`'s, without the fabric, Kafka, fleet observability
+and multi-process workers, none of which the port has).
 
 Reference behavior (Go banjax): banjax.go:66-275 — parse the three flags,
 build the shared state, start the HTTP server and the log tailer,
@@ -17,9 +16,20 @@ from that table or through the chain, whose PoW check is kernel C. With
 `pipeline_enabled: true` the tailer submits to the streaming pipeline
 (`pipeline/scheduler.py`: encode, device and drain threads) instead of
 consuming each batch itself. The config's `failpoints` spec is armed at
-start and re-armed on a reload that changes it. Pass `device="cpu"` to
-`BanjaxApp` to run the plain PyTorch versions on the host, as the tests
-do.
+start and re-armed on a reload that changes it.
+
+The kernel edge: outside standalone testing the app creates the ipset
+and its DROP rule (`effectors/ipset.py` `init_ipset`, through the `ipset`
+and `iptables` binaries on `PATH`; a failure raises) and, with
+`ipset_netlink_enabled`, an `IpsetBatchWriter` that the Banner's bans go
+through. The observability plane: the span tracer and the provenance
+ledger are configured from the config (process-wide, as in JAX), the
+SLO engine samples every `slo_sample_seconds`, the flight recorder is
+installed when `flightrec_dir` is set, and the metrics reporter writes
+the 29 s line to `metrics_log_file` (`list-metrics.log` in standalone
+testing). The kernel edge's and the serving path's counters are the
+app's own. Pass `device="cpu"` to `BanjaxApp` to run the plain PyTorch
+versions on the host, as the tests do.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import time
 from typing import Optional
 
 from banjax_tpu_torch.device import DeviceLike
+from banjax_tpu_torch.effectors.ipset import init_ipset
 
 log = logging.getLogger(__name__)
 
@@ -123,8 +134,11 @@ class BanjaxApp:
         from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
         from banjax_tpu_torch.device import resolve_device
         from banjax_tpu_torch.effectors.banner import Banner
+        from banjax_tpu_torch.effectors.ipset_stats import IpsetStats
         from banjax_tpu_torch.httpapi.serve_stats import ServeFastpathStats
         from banjax_tpu_torch.ingest.tailer import LogTailer
+        from banjax_tpu_torch.obs import flightrec, provenance, trace
+        from banjax_tpu_torch.obs.metrics import MetricsReporter
         from banjax_tpu_torch.resilience import failpoints
         from banjax_tpu_torch.resilience.health import HealthRegistry
 
@@ -136,6 +150,12 @@ class BanjaxApp:
         self._failpoints_spec = config.failpoints
         if self._failpoints_spec:
             failpoints.arm_from_spec(self._failpoints_spec)
+        # the span tracer (off by default: its no-op fast path) and the
+        # provenance ledger (on by default: it records decisions, not lines)
+        trace.configure(enabled=config.trace_enabled, ring_size=config.trace_ring_size,
+                        jax_annotations=config.trace_jax_annotations)
+        provenance.configure(enabled=config.provenance_enabled,
+                             ring_size=config.provenance_ring_size)
         self.static_lists = StaticDecisionLists(config)
         self.dynamic_lists = DynamicDecisionLists()
         self.serve_stats = ServeFastpathStats()
@@ -154,8 +174,19 @@ class BanjaxApp:
         self._banning_log_file = open(config.banning_log_file, "a", encoding="utf-8")
         temp_path = config.banning_log_file_temp or f"{config.banning_log_file}.tmp"
         self._banning_log_file_temp = open(temp_path, "a", encoding="utf-8")
+
+        # the kernel edge: the set and its DROP rule (raises on failure),
+        # and the netlink batch writer the bans ride
+        self.ipset_stats = IpsetStats()
+        ipset_instance = init_ipset(config.iptables_ban_seconds, config.standalone_testing)
+        self.ipset_writer = None
+        if ipset_instance is not None and config.ipset_netlink_enabled:
+            from banjax_tpu_torch.effectors.ipset_netlink import IpsetBatchWriter
+
+            self.ipset_writer = IpsetBatchWriter(ipset_instance, stats=self.ipset_stats)
         self.banner = Banner(self.dynamic_lists, self._banning_log_file,
-                             self._banning_log_file_temp)
+                             self._banning_log_file_temp, ipset_instance=ipset_instance,
+                             netlink_writer=self.ipset_writer)
 
         # the chain's state as build_decision_chain builds it: its PoW
         # verifier runs kernel C on this app's device
@@ -179,6 +210,48 @@ class BanjaxApp:
         self.tailer = LogTailer(
             config.server_log_file, self._consume_lines,
             health=self.health.register("tailer", stale_after=60.0),
+        )
+
+        # the flight recorder, installed as the module-level trigger target
+        # so the breaker, scheduler, failure-state and SLO hooks stay one
+        # None-check when it is off
+        self.flightrec = None
+        if config.flightrec_dir:
+            self.flightrec = flightrec.FlightRecorder(
+                config.flightrec_dir,
+                min_interval_s=config.flightrec_min_interval_s,
+                keep=config.flightrec_keep,
+                provenance_tail=config.flightrec_provenance_records,
+                metrics_text_fn=self.render_metrics_text,
+                config_hash_fn=self._config_hash,
+                health=self.health,
+                slo_getter=lambda: self.slo,
+                traffic_fn=self._traffic_snapshot,
+            )
+            flightrec.install(self.flightrec)
+        # the SLO engine: burn rates from non-destructive reads; a breach
+        # transition captures an incident bundle when the recorder is on
+        self.slo = None
+        if config.slo_enabled:
+            from banjax_tpu_torch.obs.slo import SloEngine
+
+            self.slo = SloEngine.from_config(
+                config,
+                matcher_getter=lambda: self._matcher,
+                pipeline_getter=lambda: self.pipeline,
+                on_breach=lambda name, burn: flightrec.notify(f"slo-{name}",
+                                                              f"burn rates {burn}"),
+            )
+        metrics_path = ("list-metrics.log" if config.standalone_testing
+                        else config.metrics_log_file)
+        self.metrics = MetricsReporter(
+            metrics_path, self.dynamic_lists, RegexStatesView(self),
+            self.failed_challenge_states,
+            matcher_getter=lambda: self._matcher,
+            health=self.health,
+            pipeline_getter=lambda: self.pipeline,
+            serve_stats=self.serve_stats,
+            ipset_stats=self.ipset_stats,
         )
 
         gin_log_name = "gin.log" if config.standalone_testing else config.gin_log_file
@@ -220,6 +293,36 @@ class BanjaxApp:
                 failpoints.arm_from_spec(new_config.failpoints)
             self._failpoints_spec = new_config.failpoints
 
+    def render_metrics_text(self) -> str:
+        """The whole /metrics text, as the route serves it (incident
+        bundles take it too)."""
+        from banjax_tpu_torch.obs.exposition import render_prometheus
+
+        return render_prometheus(
+            self.dynamic_lists, RegexStatesView(self), self.failed_challenge_states,
+            matcher=self._matcher, pipeline=self.pipeline, health=self.health,
+            slo=self.slo, flightrec=self.flightrec, serve_stats=self.serve_stats,
+            ipset_stats=self.ipset_stats,
+        )
+
+    def _traffic_snapshot(self):
+        """traffic.json of an incident bundle: a forced sketch pull."""
+        sketch = getattr(self._matcher, "traffic_sketch", None)
+        if sketch is None:
+            return {"enabled": False}
+        return sketch.incident_snapshot()
+
+    def _config_hash(self) -> str:
+        """sha256 of the config file on disk: ties a bundle to the rules
+        and limits that were live."""
+        import hashlib
+
+        try:
+            with open(self.config_holder.path, "rb") as f:
+                return hashlib.sha256(f.read()).hexdigest()
+        except OSError:
+            return ""
+
     def _current_matcher(self):
         """The matcher of the current config generation, rebuilt when the
         generation moves (regex_rate_limiter.go:59). The old matcher is
@@ -257,11 +360,14 @@ class BanjaxApp:
         return results  # the tailer ignores this; tests read it
 
     def start_workers(self) -> None:
-        """Start the pipeline's stage threads, if on, and the tailer (not
-        the HTTP server)."""
+        """Start the pipeline's stage threads, if on, the SLO sampler, the
+        tailer and the metrics reporter (not the HTTP server)."""
         if self.pipeline is not None:
             self.pipeline.start()
+        if self.slo is not None:
+            self.slo.start(self.config_holder.get().slo_sample_seconds)
         self.tailer.start()
+        self.metrics.start()
 
     def server_deps(self):
         from banjax_tpu_torch.httpapi.server import ServerDeps
@@ -280,6 +386,11 @@ class BanjaxApp:
             challenge_verifier=self.challenge_verifier,
             decision_table=self.decision_table,
             serve_stats=self.serve_stats,
+            matcher_getter=lambda: self._matcher,
+            pipeline_getter=lambda: self.pipeline,
+            slo_getter=lambda: self.slo,
+            flightrec_getter=lambda: self.flightrec,
+            ipset_stats=self.ipset_stats,
         )
 
     async def _serve(self, install_signal_handlers: bool, port: int) -> None:
@@ -349,11 +460,21 @@ class BanjaxApp:
         """Stop the workers and release what the app holds, in the JAX order:
         the tailer first (no new lines), the pipeline (it drains what was
         admitted, then its threads stop), then the lists' sweeper, the
-        decision table, the matcher, and the files."""
+        decision table, the matcher, the kernel edge's writer (it drains
+        its queue) and the files. The SLO sampler and the metrics reporter
+        stop after the pipeline; the flight recorder is uninstalled, so a
+        later app in the same process starts clean."""
+        from banjax_tpu_torch.obs import flightrec
+
         tailer_stopped = self.tailer.stop()
         if self.pipeline is not None and tailer_stopped:
             self.pipeline.flush()
             tailer_stopped = self.pipeline.stop()
+        if self.slo is not None:
+            self.slo.stop()
+        if self.flightrec is not None and flightrec.installed() is self.flightrec:
+            flightrec.install(None)
+        self.metrics.stop()
         self.dynamic_lists.close()
         dt = self.decision_table
         if dt is not None:
@@ -366,6 +487,11 @@ class BanjaxApp:
         elif self._matcher is not None:
             self._matcher.close()
             self._matcher = None
+        if self.ipset_writer is not None:
+            # the final queue drain happens inside close(); its errors are
+            # counted and logged, never raised
+            self.ipset_writer.close()
+            self.ipset_writer = None
         for f in (self._banning_log_file, self._banning_log_file_temp,
                   self._gin_log_file, self._server_log_file):
             if f is not None:

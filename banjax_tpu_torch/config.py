@@ -14,7 +14,12 @@ HTTP listener keys and the serving fast path's keys; for the streaming
 pipeline (`pipeline/`) and the breaker and failpoints it drives, the
 `pipeline_*`, `breaker_*`, `matcher_latency_budget_ms`,
 `matcher_probe_seconds`, `failpoints*`, `encode_workers` and
-`drain_resolve_depth` keys, with the JAX defaults and checks.
+`drain_resolve_depth` keys; for the kernel edge (`effectors/ipset*.py`)
+`iptables_ban_seconds`, `ipset_netlink_enabled` and
+`iptables_unbanner_seconds` (read and used nowhere, as in JAX: the
+kernel's per-entry timeouts expire bans); for the observability plane
+(`obs/`) the `trace_*`, `provenance_*`, `slo_*` and `flightrec_*` keys,
+`metrics_log_file` and `profile`; all with the JAX defaults and checks.
 
 A key the JAX schema reads and the port does not (the modules it
 configures are not ported yet) is named in one warning per load and
@@ -187,6 +192,29 @@ class Config:
     encode_workers: int = -1
     drain_resolve_depth: int = 2
     pipeline_command_take_max: int = 1024
+    # --- the kernel edge
+    iptables_unbanner_seconds: int = 0  # read, used nowhere (as in JAX)
+    ipset_netlink_enabled: bool = True
+    # --- the observability plane
+    metrics_log_file: str = ""
+    profile: bool = False
+    trace_enabled: bool = False
+    trace_ring_size: int = 4096
+    # the JAX key name, kept: here it turns on the torch.profiler / NVTX bridge
+    trace_jax_annotations: bool = False
+    provenance_enabled: bool = True
+    provenance_ring_size: int = 2048
+    slo_enabled: bool = True
+    slo_sample_seconds: float = 15.0  # 0 = no background sampling thread
+    slo_batch_latency_target: float = 0.99
+    slo_shed_ratio_max: float = 0.001
+    slo_stale_ratio_max: float = 0.001
+    slo_breaker_open_ratio_max: float = 0.01
+    slo_budget_trip_ratio_max: float = 0.01
+    flightrec_dir: str = ""
+    flightrec_min_interval_s: float = 60.0
+    flightrec_keep: int = 16
+    flightrec_provenance_records: int = 256
     # not YAML keys: the holder sets them
     restart_time: int = 0
     reload_time: int = 0
@@ -263,6 +291,26 @@ _SCALAR_KEYS = {
     "encode_workers": int,
     "drain_resolve_depth": int,
     "pipeline_command_take_max": int,
+    "iptables_unbanner_seconds": int,
+    "ipset_netlink_enabled": bool,
+    "metrics_log_file": str,
+    "profile": bool,
+    "trace_enabled": bool,
+    "trace_ring_size": int,
+    "trace_jax_annotations": bool,
+    "provenance_enabled": bool,
+    "provenance_ring_size": int,
+    "slo_enabled": bool,
+    "slo_sample_seconds": float,
+    "slo_batch_latency_target": float,
+    "slo_shed_ratio_max": float,
+    "slo_stale_ratio_max": float,
+    "slo_breaker_open_ratio_max": float,
+    "slo_budget_trip_ratio_max": float,
+    "flightrec_dir": str,
+    "flightrec_min_interval_s": float,
+    "flightrec_keep": int,
+    "flightrec_provenance_records": int,
 }
 
 _DICT_KEYS = (
@@ -293,20 +341,12 @@ _NOT_PORTED_KEYS = frozenset((
     "fabric_suspect_timeout_ms", "fabric_takeover_grace_ms",
     "fabric_trace_propagation", "fabric_vnodes", "fabric_wire_v2",
     "fleet_metrics_enabled", "fleet_scrape_timeout_ms",
-    "flightrec_dir", "flightrec_fleet_capture", "flightrec_keep",
-    "flightrec_min_interval_s", "flightrec_provenance_records",
-    "ipset_netlink_enabled", "iptables_unbanner_seconds", "kafka_command_topic",
+    "flightrec_fleet_capture", "kafka_command_topic",
     "kafka_dialer_keep_alive_seconds", "kafka_dialer_timeout_seconds",
     "kafka_max_bytes", "kafka_max_wait_ms", "kafka_min_bytes", "kafka_report_topic",
     "kafka_security_protocol", "kafka_ssl_ca", "kafka_ssl_cert", "kafka_ssl_key",
-    "kafka_ssl_key_password", "matcher_backend",
-    "matcher_mesh_rp", "metrics_log_file",
-    "profile", "provenance_enabled", "provenance_ring_size",
+    "kafka_ssl_key_password", "matcher_backend", "matcher_mesh_rp",
     "sites_to_block_ip_ttl_seconds", "sites_to_block_session_ttl_seconds",
-    "slo_batch_latency_target", "slo_breaker_open_ratio_max",
-    "slo_budget_trip_ratio_max", "slo_enabled", "slo_sample_seconds",
-    "slo_shed_ratio_max", "slo_stale_ratio_max", "trace_enabled",
-    "trace_jax_annotations", "trace_ring_size",
 ))
 
 _PAGES_DIR = Path(__file__).resolve().parent / "httpapi" / "pages"
@@ -429,6 +469,7 @@ def config_from_yaml_text(text: str, standalone_testing_default: bool = False) -
             f"up to a power of two), got {cfg.serve_decision_table_capacity}"
         )
     _check_pipeline_keys(cfg)
+    _check_obs_keys(cfg)
     cfg.not_ported = sorted(k for k in raw if k in _NOT_PORTED_KEYS)
     if cfg.not_ported:
         log.warning("not ported: %s", ", ".join(cfg.not_ported))
@@ -489,6 +530,41 @@ def _check_pipeline_keys(cfg: Config) -> None:
         raise ValueError(
             "config key pipeline_command_take_max: expected >= 1, got "
             f"{cfg.pipeline_command_take_max}"
+        )
+
+
+def _check_obs_keys(cfg: Config) -> None:
+    """The JAX schema's checks of the trace, provenance, SLO and flight
+    recorder keys (`banjax_tpu/config/schema.py:727-753,866-871`), with
+    its messages."""
+    if cfg.trace_ring_size < 1:
+        raise ValueError(
+            f"config key trace_ring_size: expected >= 1, got {cfg.trace_ring_size}"
+        )
+    if cfg.provenance_ring_size < 1:
+        raise ValueError(
+            f"config key provenance_ring_size: expected >= 1, got {cfg.provenance_ring_size}"
+        )
+    if not 0.0 < cfg.slo_batch_latency_target < 1.0:
+        raise ValueError(
+            "config key slo_batch_latency_target: expected a fraction in "
+            f"(0, 1), got {cfg.slo_batch_latency_target}"
+        )
+    for key in ("slo_shed_ratio_max", "slo_stale_ratio_max",
+                "slo_breaker_open_ratio_max", "slo_budget_trip_ratio_max"):
+        if getattr(cfg, key) <= 0:
+            raise ValueError(f"config key {key}: expected positive, got {getattr(cfg, key)}")
+    if cfg.slo_sample_seconds < 0 or cfg.flightrec_min_interval_s < 0:
+        raise ValueError(
+            "config keys slo_sample_seconds/flightrec_min_interval_s: "
+            f"expected non-negative, got {cfg.slo_sample_seconds}/"
+            f"{cfg.flightrec_min_interval_s}"
+        )
+    if cfg.flightrec_keep < 1 or cfg.flightrec_provenance_records < 1:
+        raise ValueError(
+            "config keys flightrec_keep/flightrec_provenance_records: "
+            f"expected >= 1, got {cfg.flightrec_keep}/"
+            f"{cfg.flightrec_provenance_records}"
         )
 
 

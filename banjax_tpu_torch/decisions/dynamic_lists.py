@@ -6,8 +6,9 @@ with: monotonic-severity updates (a new decision ≤ the existing one is a
 no-op), lazy expiry on read, a 9-second background sweep, per-domain
 listing for /banned, and Clear() on a hot reload.
 
-A copy of `banjax_tpu/decisions/dynamic_lists.py` without its provenance
-records (not ported). `set_mirror` attaches the serving fast path's
+A copy of `banjax_tpu/decisions/dynamic_lists.py`: every expiry (lazy on
+read, or by the sweep) is recorded in the provenance ledger
+(`obs/provenance.py`, source `expiry`). `set_mirror` attaches the serving fast path's
 decision table (`native/decisiontable.py`): every insert, expiry and
 removal is mirrored into it under this list's lock, and the session-id
 entries as a count. The mirror is an accelerator, never an authority: a
@@ -24,6 +25,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from banjax_tpu_torch.decisions.model import Decision
+from banjax_tpu_torch.obs import provenance
 
 SWEEP_INTERVAL_SECONDS = 9  # decision.go:396
 
@@ -153,6 +155,8 @@ class DynamicDecisionLists:
                     if now - ed.expires > 0:
                         del self._by_session_id[session_id]
                         self._mirror_session(-1)
+                        provenance.record(provenance.SOURCE_EXPIRY, ed.ip_address,
+                                          ed.decision, rule="session-lazy")
                         return ed, False
                     return ed, True
             ed = self._by_ip.get(client_ip)
@@ -160,6 +164,8 @@ class DynamicDecisionLists:
                 if now - ed.expires > 0:
                     del self._by_ip[client_ip]
                     self._mirror_del(client_ip)
+                    provenance.record(provenance.SOURCE_EXPIRY, client_ip, ed.decision,
+                                      rule="lazy")
                     return ed, False
                 return ed, True
         return None, False
@@ -211,8 +217,9 @@ class DynamicDecisionLists:
         now = time.time()
         with self._lock:
             for ip in [ip for ip, ed in self._by_ip.items() if now - ed.expires > 0]:
-                del self._by_ip[ip]
+                ed = self._by_ip.pop(ip)
                 self._mirror_del(ip)
+                provenance.record(provenance.SOURCE_EXPIRY, ip, ed.decision, rule="sweep")
 
     def _sweep_loop(self) -> None:
         while not self._stop.wait(SWEEP_INTERVAL_SECONDS):

@@ -1,16 +1,18 @@
 """Banner: the ban effector both paths stream into.
 
 Reference behavior (Go banjax): internal/iptables.go:117-331. A copy of
-`banjax_tpu/effectors/banner.py` without ipset: `ban_or_challenge_ip`
-inserts an expiring decision into the dynamic lists (which is how a regex
-ban or challenge from the log path reaches `/auth_request`), and the two
-ban logs write the same bytes as the JAX package's (field order of the
+`banjax_tpu/effectors/banner.py`: `ban_or_challenge_ip` inserts an
+expiring decision into the dynamic lists (which is how a regex ban or
+challenge from the log path reaches `/auth_request`) and escalates
+IptablesBlock to an ipset add (skipping localhost, standalone testing
+and, on the subprocess path, already-banned IPs); the two ban logs
+write the same bytes as the JAX package's (field order of the
 reference's LogJson struct, compact JSON, local-time
 "%Y-%m-%dT%H:%M:%S", the `_temp` file for hosts in `disable_logging`).
-The kernel edge (ipset, netlink) is not ported yet, so `_ban_ip` keeps
-only its skip rules, and the `ipset_*` methods the admin routes call
-behave as the JAX Banner's do with no ipset instance: an add and a
-delete do nothing, a test is False and the list is empty.
+With a netlink writer (`effectors/ipset_netlink.py`) adds ride its
+coalesced queue; the admin reads (test, list, del) keep the subprocess
+shim. With no ipset instance (standalone testing) an add and a delete do
+nothing, a test is False and the list is empty.
 """
 
 from __future__ import annotations
@@ -19,11 +21,12 @@ import json
 import logging
 import threading
 import time
-from typing import List, TextIO, Tuple
+from typing import List, Optional, TextIO, Tuple
 
 from banjax_tpu_torch.config import Config
 from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
 from banjax_tpu_torch.decisions.model import Decision
+from banjax_tpu_torch.effectors.ipset import IpsetInstance
 
 log = logging.getLogger(__name__)
 
@@ -92,10 +95,16 @@ class Banner(BannerInterface):
         decision_lists: DynamicDecisionLists,
         ban_log_file: TextIO,
         ban_log_file_temp: TextIO,
+        ipset_instance: Optional[IpsetInstance] = None,
+        netlink_writer=None,
     ):
         self.decision_lists = decision_lists
         self._ban_log = ban_log_file
         self._ban_log_temp = ban_log_file_temp
+        self._ipset = ipset_instance
+        # the batched kernel-edge writer: adds ride its coalesced netlink
+        # queue; the admin reads (test/list/del) keep the subprocess shim
+        self.netlink_writer = netlink_writer
         self._log_lock = threading.Lock()
         # (ip, decision, domain) per ban_or_challenge_ip call, in order
         self.bans: List[Tuple[str, Decision, str]] = []
@@ -106,7 +115,11 @@ class Banner(BannerInterface):
         expires = time.time() + config.expiring_decision_ttl_seconds
         self.decision_lists.update(ip, expires, decision, False, domain)
         if decision == Decision.IPTABLES_BLOCK:
-            _ban_ip(config, ip)
+            _ban_ip(config, ip, self)
+
+    @property
+    def ipset_batching(self) -> bool:
+        return self.netlink_writer is not None and self._ipset is not None
 
     def log_regex_ban(
         self, config: Config, log_time_unix: float, ip: str, rule_name: str,
@@ -164,21 +177,37 @@ class Banner(BannerInterface):
             target.flush()
 
     def ipset_add(self, config: Config, ip: str) -> None:
-        pass
+        if self._ipset is None:
+            return
+        if self.netlink_writer is not None:
+            # never blocks, never raises: overflow sheds (counted) and a
+            # netlink failure falls back to the subprocess shim inside the
+            # writer's drain thread
+            self.netlink_writer.enqueue(ip, config.iptables_ban_seconds)
+            return
+        self._ipset.add(ip, config.iptables_ban_seconds)
 
     def ipset_test(self, config: Config, ip: str) -> bool:
-        return False
+        # iptables.go:300-303: an error reads as "not banned"
+        if self._ipset is None:
+            return False
+        try:
+            return self._ipset.test(ip)
+        except Exception:  # noqa: BLE001 — the reference ignores the error
+            return False
 
     def ipset_list(self) -> List[str]:
-        return []
+        if self._ipset is None:
+            return []
+        return self._ipset.list_entries()
 
     def ipset_del(self, ip: str) -> None:
-        pass
+        if self._ipset is not None:
+            self._ipset.delete(ip)
 
 
-def _ban_ip(config: Config, ip: str) -> None:
-    """iptables.go:313-331: skip localhost and standalone testing; the
-    ipset add that follows in the reference is not ported yet."""
+def _ban_ip(config: Config, ip: str, banner: BannerInterface) -> None:
+    """iptables.go:313-331: skip localhost, skip in testing, no double ban."""
     log.info("ban_ip: %s timeout %s", ip, config.iptables_ban_seconds)
     if ip == "127.0.0.1":
         log.info("ban_ip: not going to block localhost")
@@ -186,3 +215,15 @@ def _ban_ip(config: Config, ip: str) -> None:
     if config.standalone_testing:
         log.info("ban_ip: not calling ipset in testing")
         return
+    if getattr(banner, "ipset_batching", False):
+        # the batched writer's adds are idempotent (`-exist` on both the
+        # netlink and the subprocess path): no test before the add
+        banner.ipset_add(config, ip)
+        return
+    if banner.ipset_test(config, ip):
+        log.info("ban_ip: no double ban %s", ip)
+        return
+    try:
+        banner.ipset_add(config, ip)
+    except Exception as e:  # noqa: BLE001 — the reference logs and continues (iptables.go:328-330)
+        log.error("ban_ip ipset add failed: %s", e)

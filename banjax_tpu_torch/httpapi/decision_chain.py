@@ -17,11 +17,17 @@ request logs a DecisionForNginxResult JSON record.
 
 This module is framework-agnostic: it consumes a RequestInfo and produces a
 Response, so the chain can be tested without an HTTP server and reused by
-any frontend. A copy of `banjax_tpu/httpapi/decision_chain.py` without its
-failpoints, provenance records and trace spans (observability of the HTTP
-server, which the port does not have yet). The chain reads the clock as
-`time.time()` and draws session ids through `secrets.randbits`, so a caller
-can pin both.
+any frontend. A copy of `banjax_tpu/httpapi/decision_chain.py`, with its
+provenance records (static and UA list decisions, challenge-failure
+bans), its rooted `challenge.sha_inv` span around validate -> fail -> ban,
+and its failpoint sites. The sites `decision_chain` (here),
+`challenge.issue` (`challenge/issuer.py`) and `challenge.verify`
+(`challenge/verifier.py`) raise into the server's fail-open middleware,
+which answers as the JAX server does; `challenge.device_verify` makes the
+verifier's kernel-C dispatch raise as a kernel fault would (counted in
+`faults`), where the JAX verifier falls back to hashlib. The chain reads
+the clock as `time.time()` and draws session ids through
+`secrets.randbits`, so a caller can pin both.
 """
 
 from __future__ import annotations
@@ -69,6 +75,8 @@ from banjax_tpu_torch.httpapi.rewrite import (
     apply_args_to_sha_inv_page,
 )
 from banjax_tpu_torch.ingest.reports import report_passed_failed_banned_message
+from banjax_tpu_torch.obs import provenance, trace
+from banjax_tpu_torch.resilience import failpoints
 
 log = logging.getLogger(__name__)
 
@@ -443,6 +451,11 @@ def too_many_failed_challenges(
             config.too_many_failed_challenges_threshold, req.client_user_agent,
             decision_type, req.method,
         )
+        provenance.record(
+            provenance.SOURCE_CHALLENGE, req.client_ip, decision_type,
+            rule=f"failed challenge {challenge_type}",
+            hits=config.too_many_failed_challenges_threshold,
+        )
     return result
 
 
@@ -455,41 +468,47 @@ def send_or_validate_sha_challenge(
     integrity_cookie = req.cookie(INTEGRITY_CHECK_COOKIE_NAME) or ""
     bot_score, top_factor, fingerprint = calc_bot_score_from_cookie(integrity_cookie)
 
-    if challenge_cookie is not None:
-        try:
-            challenge_verifier_mod.verify_sha_inv(
-                config.hmac_secret, challenge_cookie, time.time(),
-                _get_user_agent_or_ip(config, req),
-                config.sha_inv_expected_zero_bits,
-                device=state.challenge_verifier,
-            )
-            resp = access_granted(
-                config, req, str(ShaChallengeResult.PASSED), bot_score, top_factor, fingerprint
-            )
-            report_passed_failed_banned_message(
-                config, "ip_passed_challenge", req.client_ip, req.requested_host
-            )
-            return resp, ShaChallengeResult.PASSED, RateLimitResult()
-        except CookieError:
-            sha_result = ShaChallengeResult.FAILED_BAD_COOKIE
-    else:
-        sha_result = ShaChallengeResult.FAILED_NO_COOKIE
+    # one span around validate -> fail -> ban, so that a challenge_failure
+    # provenance record carries the trace id of the verification behind it;
+    # the HTTP path has no ambient pipeline span, so the span roots its own
+    # trace (inert when tracing is off: new_trace() returns 0)
+    tid = trace.current_trace_id() or trace.new_trace()
+    with trace.span("challenge.sha_inv", trace_id=tid, args={"ip": req.client_ip}):
+        if challenge_cookie is not None:
+            try:
+                challenge_verifier_mod.verify_sha_inv(
+                    config.hmac_secret, challenge_cookie, time.time(),
+                    _get_user_agent_or_ip(config, req),
+                    config.sha_inv_expected_zero_bits,
+                    device=state.challenge_verifier,
+                )
+                resp = access_granted(
+                    config, req, str(ShaChallengeResult.PASSED), bot_score, top_factor, fingerprint
+                )
+                report_passed_failed_banned_message(
+                    config, "ip_passed_challenge", req.client_ip, req.requested_host
+                )
+                return resp, ShaChallengeResult.PASSED, RateLimitResult()
+            except CookieError:
+                sha_result = ShaChallengeResult.FAILED_BAD_COOKIE
+        else:
+            sha_result = ShaChallengeResult.FAILED_NO_COOKIE
 
-    report_passed_failed_banned_message(
-        config, "ip_failed_challenge", req.client_ip, req.requested_host
-    )
-    if fail_action == FailAction.BLOCK:
-        rate_result = too_many_failed_challenges(state, req, "sha_inv")
-        if rate_result.exceeded:
-            report_passed_failed_banned_message(
-                config, "ip_banned", req.client_ip, req.requested_host
-            )
-            resp = access_denied(
-                config, req, "TooManyFailedChallenges", bot_score, top_factor, fingerprint
-            )
-            return resp, sha_result, rate_result
-        return sha_inv_challenge(config, req), sha_result, rate_result
-    return sha_inv_challenge(config, req), sha_result, RateLimitResult()
+        report_passed_failed_banned_message(
+            config, "ip_failed_challenge", req.client_ip, req.requested_host
+        )
+        if fail_action == FailAction.BLOCK:
+            rate_result = too_many_failed_challenges(state, req, "sha_inv")
+            if rate_result.exceeded:
+                report_passed_failed_banned_message(
+                    config, "ip_banned", req.client_ip, req.requested_host
+                )
+                resp = access_denied(
+                    config, req, "TooManyFailedChallenges", bot_score, top_factor, fingerprint
+                )
+                return resp, sha_result, rate_result
+            return sha_inv_challenge(config, req), sha_result, rate_result
+        return sha_inv_challenge(config, req), sha_result, RateLimitResult()
 
 
 def send_or_validate_password(
@@ -579,6 +598,9 @@ def decision_for_nginx(
     state: ChainState, req: RequestInfo
 ) -> Tuple[Response, DecisionForNginxResult]:
     """Port of decisionForNginx2 (http_server.go:861-1136)."""
+    # an armed `decision_chain` failpoint raises into the server's
+    # fail-open middleware (500 + X-Accel-Redirect: @fail_open)
+    failpoints.check("decision_chain")
     config = state.config
     result = DecisionForNginxResult(
         client_ip=req.client_ip,
@@ -657,6 +679,7 @@ def decision_for_nginx(
             DecisionListResult.PER_SITE_UA_ACCESS_GRANTED,
             DecisionListResult.PER_SITE_UA_CHALLENGE,
             DecisionListResult.PER_SITE_UA_BLOCK,
+            prov_source=provenance.SOURCE_UA,
         )
         if outcome is not None:
             return outcome, result
@@ -681,6 +704,7 @@ def decision_for_nginx(
             DecisionListResult.GLOBAL_UA_ACCESS_GRANTED,
             DecisionListResult.GLOBAL_UA_CHALLENGE,
             DecisionListResult.GLOBAL_UA_BLOCK,
+            prov_source=provenance.SOURCE_UA,
         )
         if outcome is not None:
             return outcome, result
@@ -754,11 +778,15 @@ def _apply_static_decision(
     granted: DecisionListResult,
     challenge: DecisionListResult,
     block: DecisionListResult,
+    prov_source: str = provenance.SOURCE_STATIC,
 ) -> Optional[Response]:
-    """The shared Allow/Challenge/Block arm for chain steps 3-6."""
+    """The shared Allow/Challenge/Block arm for chain steps 3-6; every
+    acted-on list hit lands in the provenance ledger (the rule field
+    carries the chain arm, e.g. "PerSiteBlock")."""
     config = state.config
     if decision == Decision.ALLOW:
         result.decision_list_result = granted
+        provenance.record(prov_source, req.client_ip, decision, rule=str(granted))
         return access_granted(config, req, str(granted))
     if decision == Decision.CHALLENGE:
         resp, sha_result, rate_result = send_or_validate_sha_challenge(
@@ -767,8 +795,10 @@ def _apply_static_decision(
         result.decision_list_result = challenge
         result.sha_challenge_result = sha_result
         result.too_many_failed_challenges_result = rate_result
+        provenance.record(prov_source, req.client_ip, decision, rule=str(challenge))
         return resp
     if decision in (Decision.NGINX_BLOCK, Decision.IPTABLES_BLOCK):
         result.decision_list_result = block
+        provenance.record(prov_source, req.client_ip, decision, rule=str(block))
         return access_denied(config, req, str(block))
     return None

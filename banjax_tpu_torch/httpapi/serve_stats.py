@@ -61,6 +61,15 @@ class ServeFastpathStats:
         with self._lock:
             self.fail_open_total += n
 
+    def active(self) -> bool:
+        """True once the fast path was consulted or a table attached (the
+        render gate of the metrics line and /metrics)."""
+        with self._lock:
+            return bool(
+                self._hits or self._misses or self.faults_total
+                or self.mirror_errors_total or self._table is not None
+            )
+
     def snapshot(self) -> dict:
         with self._lock:
             table = self._table

@@ -10,6 +10,14 @@ access log line itself, and these routes:
   ANY  /auth_request        — the decision chain
   GET  /info                — config version
   GET  /healthz             — component health (admin-gated off loopback)
+  GET  /metrics             — Prometheus text (obs/exposition.py; admin)
+  GET  /debug/trace         — the span ring as Chrome trace JSON; ?clear=1
+                              takes and empties it in one step (admin)
+  GET  /decisions/explain?ip= — the provenance ledger's records for one
+                              IP and its live dynamic-list entry (admin)
+  GET  /debug/incidents     — flight-recorder bundles; ?name=&file= reads
+                              one file (admin)
+  GET  /traffic/top         — the traffic sketch's heavy hitters (admin)
   GET  /debug/failpoints    — instrumented sites and armed failpoints (admin)
   POST /debug/failpoints    — arm/disarm failpoints (admin; 403 when
                               failpoints_admin_enabled is false)
@@ -20,12 +28,24 @@ access log line itself, and these routes:
   GET  /banned?domain=      — expiring entries for a domain
   POST /unban               — remove an IP from expiring list + ipset
 
-Single process only (multi-process workers are not ported). Not ported
-yet: /metrics, /debug/trace, /debug/incidents, /decisions/explain,
-/traffic/top and the pprof routes (observability is a later slice). `run_http_server` takes the
-port (the reference's 8081 by default) so that a test binds port 0. The
-recovery middleware counts every fail-open answer on the app's
-ServeFastpathStats.
+With `profile: true` (gin's pprof in the reference, http_server.go:
+314-317):
+
+  GET  /debug/pprof/profile?seconds=N — cProfile of the event-loop thread
+  GET  /debug/pprof/threads           — a stack dump of every thread
+  GET  /debug/torch/trace?seconds=N   — a torch.profiler capture (CPU and
+                              CUDA activities, at most 60 s) written as a
+                              Chrome trace into a temporary directory; it
+                              takes the place of the JAX /debug/jax/trace.
+                              409 while a capture or profile runs.
+
+In the fast layout every route but /auth_request, /info and /healthz
+reaches this app through the fast server's raw proxy, as cold routes.
+Single process only (multi-process workers are not ported); `/metrics`
+has no `?fleet=1` and `/decisions/explain` no cross-shard proxy (the
+fabric is not ported). `run_http_server` takes the port (the reference's
+8081 by default) so that a test binds port 0. The recovery middleware
+counts every fail-open answer on the app's ServeFastpathStats.
 """
 
 from __future__ import annotations
@@ -40,7 +60,7 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Optional, TextIO
+from typing import Callable, Optional, TextIO
 
 from aiohttp import web
 
@@ -50,6 +70,7 @@ from banjax_tpu_torch.decisions.model import Decision
 from banjax_tpu_torch.decisions.protected_paths import PasswordProtectedPaths
 from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
 from banjax_tpu_torch.effectors.banner import BannerInterface
+from banjax_tpu_torch.effectors.ipset_stats import IpsetStats
 from banjax_tpu_torch.httpapi.decision_chain import (
     ChainState,
     DecisionListResult,
@@ -75,7 +96,7 @@ def is_loopback_host(host: str) -> bool:
 
 
 def admin_auth_ok(config, listen_host: str, authorization: str) -> bool:
-    """Gate of the admin surface (/healthz here). Open on a loopback
+    """Gate of the admin surface. Open on a loopback
     listener or when no `admin_token` is configured; otherwise the request
     must carry `Authorization: Bearer <token>`, compared in constant time."""
     token = config.admin_token or ""
@@ -105,6 +126,12 @@ class ServerDeps:
     # request takes the chain
     decision_table: Optional[object] = None
     serve_stats: ServeFastpathStats = dataclasses.field(default_factory=ServeFastpathStats)
+    # the /metrics sources (getters: a reload swaps the matcher)
+    matcher_getter: Optional[Callable[[], object]] = None
+    pipeline_getter: Optional[Callable[[], object]] = None
+    slo_getter: Optional[Callable[[], object]] = None
+    flightrec_getter: Optional[Callable[[], object]] = None
+    ipset_stats: Optional[IpsetStats] = None
 
 
 _STANDALONE_KEY = "banjax_standalone_hdrs"
@@ -486,6 +513,131 @@ def build_app(deps: ServerDeps, listen_host: str = LISTEN_HOST) -> web.Applicati
         status = 503 if snap["status"] == "failed" else 200
         return web.json_response(snap, status=status)
 
+    async def metrics_route(request: web.Request) -> web.Response:
+        denied = _admin_denied(request)
+        if denied is not None:
+            return denied
+        from banjax_tpu_torch.obs.exposition import render_prometheus
+
+        text = render_prometheus(
+            deps.dynamic_lists, deps.regex_states, deps.failed_challenge_states,
+            matcher=deps.matcher_getter() if deps.matcher_getter else None,
+            pipeline=deps.pipeline_getter() if deps.pipeline_getter else None,
+            health=deps.health,
+            slo=deps.slo_getter() if deps.slo_getter else None,
+            flightrec=deps.flightrec_getter() if deps.flightrec_getter else None,
+            serve_stats=deps.serve_stats,
+            ipset_stats=deps.ipset_stats,
+        )
+        return web.Response(text=text, content_type="text/plain", charset="utf-8",
+                            headers={"X-Prometheus-Exposition-Version": "0.0.4"})
+
+    async def debug_trace_route(request: web.Request) -> web.Response:
+        denied = _admin_denied(request)
+        if denied is not None:
+            return denied
+        from banjax_tpu_torch.obs import trace as trace_mod
+
+        tracer = trace_mod.get_tracer()
+        # take and clear in one lock section: a span recorded meanwhile is
+        # in this dump or kept for the next, never dropped
+        payload = tracer.export_chrome(clear=request.query.get("clear") in ("1", "true"))
+        payload["otherData"]["enabled"] = tracer.enabled
+        return web.json_response(payload)
+
+    async def decisions_explain_route(request: web.Request) -> web.Response:
+        """Every ledger record of one IP, and its live dynamic-list entry
+        (read without the lazy expiry: an admin read does not mutate)."""
+        denied = _admin_denied(request)
+        if denied is not None:
+            return denied
+        ip = request.query.get("ip", "")
+        if not ip:
+            return web.json_response({"error": "ip query param is required"}, status=400)
+        from banjax_tpu_torch.obs import provenance
+
+        ledger = provenance.get_ledger()
+        active = None
+        ed = deps.dynamic_lists.peek(ip)
+        if ed is not None:
+            active = {
+                "decision": str(ed.decision),
+                "expires": ed.expires,
+                "domain": ed.domain,
+                "from_baskerville": ed.from_baskerville,
+            }
+        return web.json_response({
+            "ip": ip,
+            "ledger_enabled": ledger.enabled,
+            "records": ledger.explain(ip),
+            "active_decision": active,
+        })
+
+    async def traffic_top_route(request: web.Request) -> web.Response:
+        """The traffic sketch's top-K heavy hitters, distinct-IP estimate
+        and per-rule pressure, through its throttled pull (?refresh=1
+        forces one compact copy from the card)."""
+        denied = _admin_denied(request)
+        if denied is not None:
+            return denied
+        matcher = deps.matcher_getter() if deps.matcher_getter else None
+        sketch = getattr(matcher, "traffic_sketch", None)
+        if sketch is None:
+            return web.json_response({
+                "enabled": False,
+                "top": [],
+                "hint": "traffic_sketch_enabled + matcher_device_windows required",
+            })
+        try:
+            k = int(request.query.get("k", "0") or 0)
+        except ValueError:
+            return web.json_response({"error": "k must be an integer"}, status=400)
+        summary = sketch.pull(force=request.query.get("refresh") in ("1", "true"))
+        top = summary["top"][:k] if k > 0 else summary["top"]
+        age = sketch.pull_age_seconds()
+        return web.json_response({
+            "enabled": True,
+            "k": k or summary["k_max"],
+            "k_max": summary["k_max"],
+            "top": top,
+            "distinct_ips_estimate": summary["distinct_ips_estimate"],
+            "heavy_hitter_share": summary["heavy_hitter_share"],
+            "lines_total": summary["lines_total"],
+            "rule_pressure": summary["rule_pressure"],
+            "sketch": {
+                **summary["sketch"],
+                "pull_age_seconds": None if age is None else round(age, 3),
+            },
+        })
+
+    async def debug_incidents_route(request: web.Request) -> web.Response:
+        """The flight recorder's bundles: the list, one manifest, or one
+        file (?name=...&file=...)."""
+        denied = _admin_denied(request)
+        if denied is not None:
+            return denied
+        rec = deps.flightrec_getter() if deps.flightrec_getter else None
+        if rec is None:
+            return web.json_response({"enabled": False, "incidents": []})
+        name = request.query.get("name", "")
+        fname = request.query.get("file", "")
+        if name and fname:
+            data = rec.read_file(name, fname)
+            if data is None:
+                return web.json_response({"error": "not found"}, status=404)
+            ctype = "application/json" if fname.endswith(".json") else "text/plain"
+            return web.Response(body=data, content_type=ctype)
+        if name:
+            for entry in rec.list_incidents():
+                if entry["name"] == name:
+                    return web.json_response(entry)
+            return web.json_response({"error": "not found"}, status=404)
+        return web.json_response({
+            "enabled": True,
+            "directory": rec.directory,
+            "incidents": rec.list_incidents(),
+        })
+
     async def debug_failpoints_route(request: web.Request) -> web.Response:
         """Runtime fault injection (resilience/failpoints.py): GET lists the
         instrumented sites and every armed point; POST arms and disarms.
@@ -551,6 +703,11 @@ def build_app(deps: ServerDeps, listen_host: str = LISTEN_HOST) -> web.Applicati
     app.router.add_route("*", "/auth_request", auth_request)
     app.router.add_get("/info", info)
     app.router.add_get("/healthz", healthz)
+    app.router.add_get("/metrics", metrics_route)
+    app.router.add_get("/debug/trace", debug_trace_route)
+    app.router.add_get("/decisions/explain", decisions_explain_route)
+    app.router.add_get("/debug/incidents", debug_incidents_route)
+    app.router.add_get("/traffic/top", traffic_top_route)
     app.router.add_get("/debug/failpoints", debug_failpoints_route)
     app.router.add_post("/debug/failpoints", debug_failpoints_route)
     app.router.add_get("/decision_lists", decision_lists_route)
@@ -565,7 +722,94 @@ def build_app(deps: ServerDeps, listen_host: str = LISTEN_HOST) -> web.Applicati
             return web.Response(text="")
         app.router.add_get("/favicon.ico", favicon)
 
+    if config0.profile:
+        _register_profile_routes(app)
+
     return app
+
+
+def _register_profile_routes(app: web.Application) -> None:
+    """The profiling routes of `profile: true` (see the module docstring)."""
+    import cProfile
+    import io
+    import pstats
+    import sys
+    import threading
+
+    profiling = {"active": False}
+
+    async def pprof_profile(request: web.Request) -> web.Response:
+        seconds = min(float(request.query.get("seconds", "5")), 60.0)
+        if profiling["active"]:
+            return web.Response(status=409, text="profile already running\n")
+        profiling["active"] = True
+        prof = cProfile.Profile()
+        prof.enable()
+        try:
+            # a client disconnect cancels the handler mid-sleep; disable in
+            # finally or cProfile stays on the event-loop thread
+            await asyncio.sleep(seconds)
+        finally:
+            prof.disable()
+            profiling["active"] = False
+        buf = io.StringIO()
+        pstats.Stats(prof, stream=buf).sort_stats("cumulative").print_stats(60)
+        return web.Response(text=buf.getvalue())
+
+    async def pprof_threads(request: web.Request) -> web.Response:
+        buf = io.StringIO()
+        names = {t.ident: t.name for t in threading.enumerate()}
+        for ident, frame in sys._current_frames().items():
+            buf.write(f"--- thread {names.get(ident, '?')} ({ident}) ---\n")
+            traceback.print_stack(frame, file=buf)
+            buf.write("\n")
+        return web.Response(text=buf.getvalue())
+
+    async def torch_trace(request: web.Request) -> web.Response:
+        seconds = min(float(request.query.get("seconds", "3")), 60.0)
+        if profiling["active"]:
+            return web.Response(status=409, text="profile already running\n")
+        profiling["active"] = True
+        try:
+            prof, activities = _torch_profiler()
+            trace_dir = tempfile.mkdtemp(prefix="banjax-torch-trace-")
+            path = os.path.join(trace_dir, "trace.json")
+            # the profiler is started and stopped on this (the loop's)
+            # thread: torch stops a session only from the thread that
+            # started it
+            prof.__enter__()
+            try:
+                await asyncio.sleep(seconds)
+            finally:
+                prof.__exit__(None, None, None)
+            prof.export_chrome_trace(path)
+        finally:
+            profiling["active"] = False
+        return web.json_response({
+            "trace_dir": trace_dir,
+            "trace_file": path,
+            "activities": activities,
+            "hint": "open trace.json in Perfetto (ui.perfetto.dev) or chrome://tracing",
+        })
+
+    app.router.add_get("/debug/pprof/profile", pprof_profile)
+    app.router.add_get("/debug/pprof/threads", pprof_threads)
+    app.router.add_get("/debug/torch/trace", torch_trace)
+
+
+def _torch_profiler():
+    """A torch.profiler session over the CPU and, when there is a card,
+    CUDA activities, recording the record_function ranges of every thread
+    (the pipeline's stage threads are not the one that starts it).
+    Returns (profiler, activity names)."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    return (torch.profiler.profile(activities=activities, experimental_config=cfg),
+            [a.name for a in activities])
 
 
 class ServerHandle:
@@ -613,7 +857,9 @@ async def run_http_server(deps: ServerDeps, port: int = LISTEN_PORT) -> ServerHa
     if not is_loopback_host(listen_host) and not config0.admin_token:
         log.warning(
             "http listener binds non-loopback %s with no admin_token: the "
-            "admin surface (/healthz) is open to the network", listen_host,
+            "admin surface (/healthz /metrics /debug/trace /decisions/explain "
+            "/debug/incidents /debug/failpoints /traffic/top) is open to the "
+            "network", listen_host,
         )
 
     if not config0.http_fast_path:

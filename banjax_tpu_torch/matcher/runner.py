@@ -55,8 +55,15 @@ takes the classic pend: its match at submit, its windows at its drain.
 The JAX runner's two-program fused mode (program A at submit, program B
 at drain) is not ported. Where the JAX runner replays a batch's refused
 rows at submit, the port replays them at the batch's drain, so ban-log
-order stays the synchronous path's. The mesh, provenance and tracing are
-not part of this port.
+order stays the synchronous path's. The mesh is not part of this port.
+
+Observability (`obs/`): each committed chunk's program runs inside a
+`program-ab-fused` span (a child of the scheduler's `submit`), its drain
+pull and replay inside `effector-replay` (a child of `drain`), a gated
+chunk's fallback marks a `fused-overflow-fallback` instant; a breaker trip
+records a `breaker-trip` instant and notifies the flight recorder; every
+rate-limit ban is recorded in the provenance ledger with its rule, rule
+index and the threshold's hit, under the drain's trace id.
 """
 
 from __future__ import annotations
@@ -88,6 +95,7 @@ from banjax_tpu_torch.matcher.workset import (
     NativeWork,
     unique_spans,
 )
+from banjax_tpu_torch.obs import flightrec, provenance, trace
 from banjax_tpu_torch.obs.sketch import TrafficSketch
 from banjax_tpu_torch.obs.stages import StageClock
 from banjax_tpu_torch.obs.stats import MatcherStats
@@ -138,6 +146,7 @@ class TorchMatcher(Matcher):
             recovery_seconds=config.breaker_recovery_seconds,
             window_size=config.breaker_window_size,
             name="matcher-device",
+            on_trip=self._on_breaker_trip,
         )
         self._latency_budget_s = config.matcher_latency_budget_ms / 1e3
         self.budget_trips = 0      # batches over the latency budget
@@ -369,6 +378,10 @@ class TorchMatcher(Matcher):
             f"matcher breaker {self.breaker.state}: a batch of {n_lines} lines "
             "is refused (the port reruns nothing on the host)"
         )
+
+    def _on_breaker_trip(self, name: str) -> None:
+        trace.instant("breaker-trip", {"breaker": name})
+        flightrec.notify("breaker-trip", name)
 
     def _note_budget(self, elapsed_s: float) -> None:
         # matcher_latency_budget_ms (0 = off). The JAX runner derives a
@@ -804,8 +817,11 @@ class TorchMatcher(Matcher):
             stale = live = None
             if st.any():
                 stale, live = st, ~st
-            e = self._submit_pipeline_chunk(wc, cls_ids[s : s + mb], lens[s : s + mb],
-                                            live=live)
+            # the JAX single-program path's span name: match and window
+            # commit are one program (kernel A, then kernel B)
+            with trace.span("program-ab-fused", args={"row0": s}):
+                e = self._submit_pipeline_chunk(wc, cls_ids[s : s + mb], lens[s : s + mb],
+                                                live=live)
             if e is None:
                 break
             e.update(row0=s, live=live, stale=stale)
@@ -916,13 +932,16 @@ class TorchMatcher(Matcher):
                 with self.clock("chunk"):
                     fw.resolve(e["pend"])
             except PipelineOverflow as ov:
+                trace.instant("fused-overflow-fallback", {"row0": e["row0"]})
                 self.pipelined_fused_fallbacks += 1
                 self._pipeline_fallback_entry(e, ov, results, live=live)
                 continue
-            with self.clock("chunk"):
-                res = fw.collect(e["pend"])
-            self._replay_window_events(e["work"], None, (res.matched_pairs, res.always_bits),
-                                       res.events, results, live_rows=live)
+            # a child of the scheduler's ambient drain span
+            with trace.span("effector-replay", args={"row0": e["row0"]}):
+                with self.clock("chunk"):
+                    res = fw.collect(e["pend"])
+                self._replay_window_events(e["work"], None, (res.matched_pairs, res.always_bits),
+                                           res.events, results, live_rows=live)
             self.pipelined_fused_chunks += 1
         state["fused"] = None
         return n_stale
@@ -1183,6 +1202,13 @@ class TorchMatcher(Matcher):
                         self.banner.log_regex_ban(
                             self.config, p.timestamp_ns / 1e9, p.ip, rule.rule,
                             p.rest, rule.decision,
+                        )
+                        # the fixed window fires on the hit after the
+                        # threshold; the ambient drain span gives the trace id
+                        provenance.record(
+                            provenance.SOURCE_RATE_LIMIT, p.ip, rule.decision,
+                            rule=rule.rule, rule_index=idx,
+                            hits=rule.hits_per_interval + 1,
                         )
                     results[i].rule_results.append(result)
             except Exception:  # noqa: BLE001 — a failing effector loses one line, not the batch

@@ -329,6 +329,19 @@ class TrafficSketch:
             }
             return self._summary
 
+    def pull_age_seconds(self) -> Optional[float]:
+        with self._lock:
+            if self._last_pull_mono is None:
+                return None
+            return time.monotonic() - self._last_pull_mono
+
+    def incident_snapshot(self) -> dict:
+        """The flight recorder's `traffic.json`: a forced pull, so the
+        bundle shows the traffic as of the incident."""
+        out = dict(self.pull(force=True))
+        out["enabled"] = True
+        return out
+
     def estimate_ip(self, ip: str) -> int:
         """Point estimate for one IP from the device count-min as it is now
         plus the host mirror (a pull first, as the JAX sketch does)."""

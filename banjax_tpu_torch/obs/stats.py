@@ -2,22 +2,32 @@
 `PipelineStats` from `banjax_tpu/obs/stats.py`).
 
 `MatcherStats` counts what the matcher's batch path did (lines, batches,
-batch latency percentiles); `PipelineStats` is the streaming scheduler's
-accounting (`pipeline/scheduler.py`), which the breaker's derived latency
-budget reads.
+batch latency percentiles and histogram); `PipelineStats` is the
+streaming scheduler's accounting (`pipeline/scheduler.py`), which the
+breaker's derived latency budget reads. Two views, as in JAX:
 
-The JAX package also keeps interval maxima for its 29 s metrics line and
-fixed-bucket histograms for its Prometheus exposition; the port has
-neither yet, so in their place it keeps the sums the chip smoke run
-reports: busy seconds per pipeline stage and per encode worker, and the
-recent tailer-read -> drain latencies.
+  * `snapshot()`: the 29 s metrics line's view (`obs/metrics.py`), with
+    the interval keys (lines/sec, eviction delta, the encode shard
+    maxima), which it resets in the same lock section that reads them;
+  * `peek()`: the Prometheus exposition's view (`obs/exposition.py`):
+    totals and gauges only, never touching the interval state, so
+    scrapes at any cadence cannot steal the line's deltas.
+
+Neither view touches the card: they read host counters, and the traffic
+sketch through its throttled `pull`. Besides the JAX counters the port
+keeps the sums `chip_smoke.py` reports: busy seconds per pipeline stage
+and per encode worker, and the recent tailer-read -> drain latencies.
+Every key either view emits is declared in `obs/registry.py`.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import defaultdict, deque
 from typing import Dict, List, Optional
+
+from banjax_tpu_torch.obs.registry import Histogram, StageHistograms
 
 _LATENCY_RING = 512  # recent batch latencies kept for the percentiles
 _DEVICE_RING = 256   # recent device-stage latencies for the pipeline p99
@@ -36,26 +46,127 @@ class MatcherStats:
         self.batches_total = 0
         self._latencies = [0.0] * _LATENCY_RING
         self._lat_n = 0
+        self._window_lines = 0
+        self._window_start = time.monotonic()
+        self._last_evictions = 0
+        # fixed-bucket batch latency for /metrics (the same observations
+        # as the percentile ring)
+        self.batch_latency_hist = Histogram()
 
     def record_batch(self, n_lines: int, elapsed_s: float) -> None:
+        self.batch_latency_hist.observe(elapsed_s)
         with self._lock:
             self.lines_total += n_lines
             self.batches_total += 1
             self._latencies[self._lat_n % _LATENCY_RING] = elapsed_s
             self._lat_n += 1
+            self._window_lines += n_lines
 
-    def peek(self) -> Dict[str, object]:
-        """Totals and the batch-latency percentiles (the JAX keys)."""
+    def _percentiles_locked(self) -> Dict[str, object]:
+        n = min(self._lat_n, _LATENCY_RING)
+        lats = sorted(self._latencies[:n])
+        p50, p99 = _pct(lats, 0.5), (lats[min(n - 1, (n * 99) // 100)] if n else None)
+        return {
+            "MatcherBatchLatencyP50Ms": None if p50 is None else round(p50 * 1e3, 3),
+            "MatcherBatchLatencyP99Ms": None if p99 is None else round(p99 * 1e3, 3),
+        }
+
+    @staticmethod
+    def _derived(device_windows=None, matcher=None) -> Dict[str, object]:
+        """The keys read off other objects (the device windows, the fused
+        pipeline, the sketch, the breaker): no stats lock, no reset, so
+        both views share it."""
+        out: Dict[str, object] = {}
+        if device_windows is not None:
+            out["DeviceWindowsOccupancy"] = device_windows.occupancy
+            out["DeviceWindowsCapacity"] = device_windows.capacity
+            # one read: an eviction between two reads must not be lost
+            # from the next interval's delta
+            out["DeviceWindowsEvictions"] = device_windows.eviction_count
+            out["DeviceWindowsGrows"] = device_windows.grow_count
+            out["SlotMgrNative"] = bool(device_windows.slotmgr_native)
+            out["DeviceWindowsShadowedIps"] = len(device_windows)
+            out["SlotRefusals"] = device_windows.slot_refusals
+            out["SketchAdmissions"] = device_windows.sketch_admissions
+            if device_windows._warm is not None:
+                out["WarmTierSpills"] = device_windows.warm_spills
+                out["WarmTierRefills"] = device_windows.warm_refills
+                out["WarmTierDropped"] = device_windows.warm_dropped
+                out["WarmTierOccupancy"] = device_windows.warm_occupancy
+                out["WarmTierCapacity"] = device_windows.warm_capacity
+        if matcher is not None:
+            if getattr(matcher, "_prefilter", None) is not None:
+                out["PrefilterActive"] = True
+            fw = getattr(matcher, "_fw_pipeline", None)
+            if fw is not None:
+                # the port commits on the single-program path only, where
+                # the JAX pipeline's fused and fallback batches are its
+                # single-kernel chunks and fallbacks
+                out["PipelineFusedBatches"] = fw.sk_chunks
+                out["PipelineFallbackBatches"] = fw.sk_fallbacks
+                out["PipelinedFusedChunks"] = matcher.pipelined_fused_chunks
+                out["PipelinedFusedFallbacks"] = matcher.pipelined_fused_fallbacks
+                depth = matcher.config.drain_resolve_depth
+                out["DrainResolveAheadDepth"] = depth
+                # nothing is left to overlap on the single program
+                out["DrainResolveOverlapMs"] = None
+                out["SingleKernelChunks"] = fw.sk_chunks
+                out["SingleKernelFallbacks"] = fw.sk_fallbacks
+                out["SingleKernelDepthIgnored"] = depth > 1
+            ts = getattr(matcher, "traffic_sketch", None)
+            if ts is not None:
+                try:
+                    s = ts.pull()
+                    out["TrafficSketchLines"] = ts.lines_total
+                    out["TrafficDistinctIpsEst"] = s["distinct_ips_estimate"]
+                    out["TrafficHeavyHitterShare"] = s["heavy_hitter_share"]
+                    out["TrafficSketchPullBytes"] = ts.pull_bytes_total
+                    age = ts.pull_age_seconds()
+                    out["TrafficSketchPullAgeSeconds"] = None if age is None else round(age, 3)
+                except Exception:  # noqa: BLE001 — telemetry must not break the metrics
+                    pass
+            br = getattr(matcher, "breaker", None)
+            if br is not None:
+                out["MatcherBreakerState"] = br.state
+                out["MatcherBreakerTrips"] = br.trip_count
+        return out
+
+    def snapshot(self, device_windows=None, matcher=None) -> Dict[str, object]:
+        """The 29 s line's keys; resets the interval window. The foreign
+        reads happen outside the stats lock; every read-then-reset of the
+        window state is one lock section."""
+        derived = self._derived(device_windows, matcher)
+        evictions = derived.get("DeviceWindowsEvictions")
         with self._lock:
-            n = min(self._lat_n, _LATENCY_RING)
-            lats = sorted(self._latencies[:n])
-            p50, p99 = _pct(lats, 0.5), (lats[min(n - 1, (n * 99) // 100)] if n else None)
-            return {
+            now = time.monotonic()
+            dt = max(now - self._window_start, 1e-9)
+            lps = self._window_lines / dt
+            self._window_lines = 0
+            self._window_start = now
+            out: Dict[str, object] = {
                 "MatcherLinesTotal": self.lines_total,
                 "MatcherBatchesTotal": self.batches_total,
-                "MatcherBatchLatencyP50Ms": None if p50 is None else round(p50 * 1e3, 3),
-                "MatcherBatchLatencyP99Ms": None if p99 is None else round(p99 * 1e3, 3),
+                "MatcherLinesPerSec": round(lps, 1),
+                **self._percentiles_locked(),
             }
+            if evictions is not None:
+                out["DeviceWindowsEvictionsPerInterval"] = evictions - self._last_evictions
+                self._last_evictions = evictions
+        out.update(derived)
+        return out
+
+    def peek(self, device_windows=None, matcher=None) -> Dict[str, object]:
+        """Totals, percentiles and derived gauges; no interval keys, no
+        resets."""
+        derived = self._derived(device_windows, matcher)
+        with self._lock:
+            out: Dict[str, object] = {
+                "MatcherLinesTotal": self.lines_total,
+                "MatcherBatchesTotal": self.batches_total,
+                **self._percentiles_locked(),
+            }
+        out.update(derived)
+        return out
 
 
 class PipelineStats:
@@ -88,9 +199,15 @@ class PipelineStats:
         self._device_p99_ewma: Optional[float] = None
         # sharded encode fan-out (scheduler._begin_state)
         self.encode_sharded_batches = 0
+        self._encode_shard_ms_max = 0.0  # interval max, reset by snapshot
         self._encode_util_ewma: Optional[float] = None
         self._worker_busy_ewma: List[float] = []
+        self._shard_skew_max = 0.0       # interval max, reset by snapshot
         self._shard_skew_ewma: Optional[float] = None
+        # fixed-bucket distributions for /metrics
+        self.device_latency_hist = Histogram()
+        self.stage_hists = StageHistograms()
+        self.e2e_hists = StageHistograms()  # by hop: "local" (no fabric)
         # busy seconds per stage thread and per encode worker
         self.stage_seconds: Dict[str, float] = defaultdict(float)
         self.worker_seconds: List[float] = []
@@ -144,6 +261,8 @@ class PipelineStats:
         util = min(1.0, max(0.0, sum(shard_ms) / (wall * n_shards)))
         with self._lock:
             self.encode_sharded_batches += 1
+            self._encode_shard_ms_max = max(self._encode_shard_ms_max, max(shard_ms))
+            self._shard_skew_max = max(self._shard_skew_max, skew)
             self._encode_util_ewma = (
                 util if self._encode_util_ewma is None
                 else self._encode_util_ewma + 0.3 * (util - self._encode_util_ewma)
@@ -179,6 +298,7 @@ class PipelineStats:
     def observe_device(self, elapsed_s: float) -> None:
         """One device-stage (submit + collect) wall time; feeds the p99 the
         breaker's derived latency budget reads."""
+        self.device_latency_hist.observe(elapsed_s)
         with self._lock:
             self._device_ring[self._device_n % _DEVICE_RING] = elapsed_s
             self._device_n += 1
@@ -191,13 +311,17 @@ class PipelineStats:
             )
 
     def observe_stages(self, stage_ms: Dict[str, float]) -> None:
-        """Per-stage wall times of one drained batch, summed per stage."""
+        """Per-stage wall times of one drained batch: summed per stage, and
+        into the labeled banjax_stage_duration_seconds histogram."""
+        for stage, ms in stage_ms.items():
+            self.stage_hists.observe(stage, ms / 1e3)
         with self._lock:
             for stage, ms in stage_ms.items():
                 self.stage_seconds[stage] += ms / 1e3
 
     def observe_e2e(self, seconds: float) -> None:
         """One batch's oldest tailer-read stamp -> effector commit."""
+        self.e2e_hists.observe("local", max(0.0, seconds))
         with self._lock:
             self._e2e.append(max(0.0, seconds))
 
@@ -218,31 +342,47 @@ class PipelineStats:
                 return 0.0
             return max(0.05, 3.0 * self._device_p99_ewma)
 
-    def peek(self) -> Dict[str, object]:
-        """The JAX scheduler's totals and EWMAs (its Prometheus view)."""
+    def _totals_locked(self) -> Dict[str, object]:
+        return {
+            "EncodeShardedBatches": self.encode_sharded_batches,
+            "EncodeWorkerUtilization": (
+                None if self._encode_util_ewma is None
+                else round(self._encode_util_ewma, 3)
+            ),
+            "PipelineAdmittedLines": self.admitted_lines,
+            "PipelineProcessedLines": self.processed_lines,
+            "PipelineShedLines": self.shed_lines,
+            "PipelineDrainErrorLines": self.drain_error_lines,
+            "PipelineStaleDroppedLines": self.stale_dropped_lines,
+            "PipelineBatches": self.batches,
+            "PipelineFallbackBatches": self.fallback_batches,
+            "PipelineCommandItems": self.command_items,
+            "PipelineCommandBatches": self.command_batches,
+            "PipelineProbeFailures": self.probe_failed,
+            "PipelineDeviceP99Ms": (
+                None if self._device_p99_ewma is None
+                else round(self._device_p99_ewma * 1e3, 3)
+            ),
+        }
+
+    def snapshot(self) -> Dict[str, object]:
+        """The 29 s line's view: totals plus the interval maxima, which
+        reset here (read and reset in one lock section)."""
         with self._lock:
-            return {
-                "EncodeShardedBatches": self.encode_sharded_batches,
-                "EncodeWorkerUtilization": (
-                    None if self._encode_util_ewma is None
-                    else round(self._encode_util_ewma, 3)
-                ),
-                "EncodeShardSkewMax": (
-                    None if self._shard_skew_ewma is None
-                    else round(self._shard_skew_ewma, 3)
-                ),
-                "PipelineAdmittedLines": self.admitted_lines,
-                "PipelineProcessedLines": self.processed_lines,
-                "PipelineShedLines": self.shed_lines,
-                "PipelineDrainErrorLines": self.drain_error_lines,
-                "PipelineStaleDroppedLines": self.stale_dropped_lines,
-                "PipelineBatches": self.batches,
-                "PipelineFallbackBatches": self.fallback_batches,
-                "PipelineCommandItems": self.command_items,
-                "PipelineCommandBatches": self.command_batches,
-                "PipelineProbeFailures": self.probe_failed,
-                "PipelineDeviceP99Ms": (
-                    None if self._device_p99_ewma is None
-                    else round(self._device_p99_ewma * 1e3, 3)
-                ),
-            }
+            out = self._totals_locked()
+            out["EncodeShardMsMax"] = round(self._encode_shard_ms_max, 3)
+            out["EncodeShardSkewMax"] = round(self._shard_skew_max, 3)
+            self._encode_shard_ms_max = 0.0
+            self._shard_skew_max = 0.0
+            return out
+
+    def peek(self) -> Dict[str, object]:
+        """The Prometheus view: totals and EWMAs, no resets (the shard
+        skew is its EWMA here)."""
+        with self._lock:
+            out = self._totals_locked()
+            out["EncodeShardSkewMax"] = (
+                None if self._shard_skew_ewma is None
+                else round(self._shard_skew_ewma, 3)
+            )
+            return out

@@ -60,8 +60,16 @@ lines, with the same bound and accounting, and the drain thread runs
 each handler in admission order (the Kafka reader that feeds this lane in
 the JAX package is not ported).
 
-The JAX scheduler's trace spans and flight-recorder notifications are
-left out (observability is a later slice of the port).
+Tracing (`obs/trace.py`, off by default): a batch gets its trace id at
+take-time and a root `admission` span that rides it to the drain; the
+stages record `encode` (with an `encode-shard` child a shard), `submit`
+(inside it the matcher's `program-ab-fused` span a chunk, and, with the
+profiler bridge on, an NVTX range carrying the trace id), `collect` and
+`drain` (the matcher's `effector-replay` a chunk), as in JAX. Instants:
+`shed`, `device-failure`, and `breaker-refuse` where the JAX scheduler's
+`breaker-reroute` stands (the port refuses). A shed burst and a drain
+error notify the flight recorder (`obs/flightrec.py`), outside every
+scheduler lock.
 """
 
 from __future__ import annotations
@@ -74,6 +82,7 @@ import time
 from collections import deque
 from typing import Callable, List, Optional, Sequence
 
+from banjax_tpu_torch.obs import flightrec, trace
 from banjax_tpu_torch.obs.stats import PipelineStats
 from banjax_tpu_torch.pipeline.sizer import AdaptiveBatchSizer
 from banjax_tpu_torch.resilience import failpoints
@@ -105,7 +114,8 @@ def _bind(matcher) -> None:
 
 class _Batch:
     __slots__ = ("lines", "matcher", "state", "t_encode_ms", "t_device_ms",
-                 "t0_device", "kind", "t_read", "drained", "recovered")
+                 "t0_device", "kind", "t_read", "drained", "recovered", "trace_id",
+                 "root_span")
 
     def __init__(self, lines: list, kind: str = "lines"):
         self.lines = lines      # log lines, or _Command items (kind="cmd")
@@ -121,6 +131,10 @@ class _Batch:
         # its device stage failed after a commit: it drains through
         # pipeline_finish, which finishes what was not committed
         self.recovered = False
+        # span propagation: the trace id allocated at take-time and the
+        # root span that rides the batch to its drain
+        self.trace_id = 0
+        self.root_span = trace.NOOP_SPAN
 
 
 class _Command:
@@ -312,6 +326,7 @@ class PipelineScheduler:
             return
         self.stats.note_admitted(len(lines))
         deadline: Optional[float] = None
+        shed_burst = 0
         with self._cond:
             self._last_activity = time.monotonic()
             while (
@@ -338,8 +353,11 @@ class PipelineScheduler:
                     lines = lines[overflow:]
                     dropped += overflow
                 self.stats.note_shed(dropped)
+                # a shed belongs to no single batch: a stream-level instant
+                trace.instant("shed", {"lines": dropped, "buffered": len(self._buf)})
                 if self._health is not None:
                     self._health.degraded(f"overload: shed {dropped} lines")
+                shed_burst = dropped
             was_empty = not self._buf
             self._buf.extend(lines)
             if marked and lines:
@@ -347,6 +365,9 @@ class PipelineScheduler:
             if was_empty:
                 # the encode thread sleeps only on an empty buffer
                 self._cond.notify_all()
+        if shed_burst:
+            # the recorder writes files: outside the condition's lock
+            flightrec.notify("shed-burst", f"shed {shed_burst} lines")
 
     # ---- encode stage ----
 
@@ -400,6 +421,12 @@ class PipelineScheduler:
                 batch = _Batch(lines, kind="cmd" if is_cmd else "lines")
                 batch.t_read = t_read
                 batch.matcher = matcher
+                if trace.enabled():
+                    batch.trace_id = trace.new_trace()
+                    batch.root_span = trace.begin(
+                        "admission", batch.trace_id,
+                        args={"items": len(lines), "kind": batch.kind},
+                    )
                 if not is_cmd:
                     self._encode_batch(batch)
                 self._q_dev.put(batch)
@@ -410,27 +437,34 @@ class PipelineScheduler:
         t0 = time.perf_counter()
         matcher = batch.matcher
         breaker = getattr(matcher, "breaker", None)
-        # breaker open: no split encode; the generic drain refuses the batch
-        if hasattr(matcher, "pipeline_begin") and not (
-            breaker is not None and breaker.state == OPEN
-        ):
-            try:
-                failpoints.check("pipeline.encode")
-                batch.state = self._begin_state(matcher, batch.lines)
-            except Exception:  # noqa: BLE001 — the batch drains generically; nothing is lost
-                log.exception("pipeline encode stage failed; the batch drains generically")
-                batch.state = None
+        with trace.span("encode", batch.trace_id, parent=batch.root_span.span_id) as sp:
+            # breaker open: no split encode; the generic drain refuses the batch
+            if hasattr(matcher, "pipeline_begin") and not (
+                breaker is not None and breaker.state == OPEN
+            ):
+                try:
+                    failpoints.check("pipeline.encode")
+                    batch.state = self._begin_state(matcher, batch.lines, sp)
+                except Exception:  # noqa: BLE001 — the batch drains generically; nothing is lost
+                    log.exception("pipeline encode stage failed; the batch drains generically")
+                    sp.note("failed", True)
+                    batch.state = None
+            elif breaker is not None and breaker.state == OPEN:
+                sp.note("breaker", "open-skip")
         batch.t_encode_ms = (time.perf_counter() - t0) * 1e3
 
-    def _begin_state(self, matcher, lines: List[str]):
+    def _begin_state(self, matcher, lines: List[str], encode_span=trace.NOOP_SPAN):
         """pipeline_begin, sharded across the encode pool when the batch is
         large enough to pay for the fan-out. Shards are contiguous row
         ranges and the matcher's merge keeps line order, so the output is
         the single-thread encode's. A failing shard fails this batch only
-        (it drains generically); the pool survives."""
+        (it drains generically); the pool survives. Each shard records an
+        `encode-shard` child of the encode span (one covering the whole
+        parse on the single-thread path)."""
         now = self._now_fn()
         pool = self._encode_pool
         n = len(lines)
+        tid, parent = encode_span.trace_id, encode_span.span_id
         n_shards = 0
         if (
             pool is not None
@@ -439,14 +473,19 @@ class PipelineScheduler:
         ):
             n_shards = min(self.encode_workers, n // _MIN_SHARD_LINES)
         if n_shards < 2:
-            return matcher.pipeline_begin(lines, now)
+            with trace.span("encode-shard", tid, parent,
+                            args={"shard": 0, "shards": 1, "rows": n}):
+                return matcher.pipeline_begin(lines, now)
         bounds = [n * k // n_shards for k in range(n_shards + 1)]
         shard_ms = [0.0] * n_shards
 
         def run(k: int):
             t = time.perf_counter()
-            failpoints.check("pipeline.encode_shard")
-            out = matcher.encode_shard(lines[bounds[k] : bounds[k + 1]], now)
+            with trace.span("encode-shard", tid, parent,
+                            args={"shard": k, "shards": n_shards,
+                                  "rows": bounds[k + 1] - bounds[k]}):
+                failpoints.check("pipeline.encode_shard")
+                out = matcher.encode_shard(lines[bounds[k] : bounds[k + 1]], now)
             shard_ms[k] = (time.perf_counter() - t) * 1e3
             return out
 
@@ -494,18 +533,23 @@ class PipelineScheduler:
                     _bind(batch.matcher)
                     breaker = getattr(batch.matcher, "breaker", None)
                     if breaker is not None and not breaker.allow():
+                        trace.instant("breaker-refuse", {"state": breaker.state},
+                                      trace_id=batch.trace_id)
                         batch.state = None  # the generic drain refuses it
                     else:
                         batch.t0_device = time.perf_counter()
                         try:
                             failpoints.check("pipeline.submit")
-                            batch.matcher.pipeline_submit(batch.state, now=self._now_fn())
+                            with trace.span("submit", batch.trace_id,
+                                            parent=batch.root_span.span_id), \
+                                    trace.step_annotation(batch.trace_id):
+                                batch.matcher.pipeline_submit(batch.state, now=self._now_fn())
                             # submit's half of the device time; collect adds its own
                             batch.t_device_ms = (time.perf_counter() - batch.t0_device) * 1e3
                         except Exception:  # noqa: BLE001 — the batch drains generically, counted
                             log.exception("pipeline submit stage failed; the batch drains "
                                           "generically on the card")
-                            self._device_failure(batch)
+                            self._device_failure(batch, "submit")
                         else:
                             pending.append(batch)
                             # keep <= 2 in flight: collect the older batch
@@ -527,11 +571,12 @@ class PipelineScheduler:
         t0 = time.perf_counter()
         try:
             failpoints.check("pipeline.collect")
-            batch.matcher.pipeline_collect(batch.state)
+            with trace.span("collect", batch.trace_id, parent=batch.root_span.span_id):
+                batch.matcher.pipeline_collect(batch.state)
         except Exception:  # noqa: BLE001 — the batch drains generically, counted
             log.exception("pipeline collect stage failed; the batch drains generically "
                           "on the card")
-            self._device_failure(batch)
+            self._device_failure(batch, "collect")
         else:
             batch.t_device_ms += (time.perf_counter() - t0) * 1e3
             self.stats.observe_device(batch.t_device_ms / 1e3)
@@ -540,7 +585,8 @@ class PipelineScheduler:
                 note(batch.t_device_ms / 1e3, ok=True)
         self._q_drain.put(batch)
 
-    def _device_failure(self, batch: _Batch) -> None:
+    def _device_failure(self, batch: _Batch, stage: str) -> None:
+        trace.instant("device-failure", {"stage": stage}, trace_id=batch.trace_id)
         # a batch that committed something keeps its state: rerun whole,
         # its committed hits would count twice. Otherwise settle what it
         # holds (order turns, pins, its drain-window slot) before the
@@ -580,50 +626,60 @@ class PipelineScheduler:
             n = len(batch.lines)
             results = None
             ok = True
-            try:
-                failpoints.check("pipeline.drain")
-                now = self._now_fn()
-                if batch.kind == "cmd":
-                    # a bad command loses itself, not the batch (the
-                    # handler owns its parse errors)
-                    for item in batch.lines:
-                        try:
-                            item.handler(item.raw)
-                        except Exception:  # noqa: BLE001 — logged; the next command runs
-                            log.exception("pipeline command dispatch failed")
-                    self.stats.note_commands(n)
-                elif batch.state is None:
-                    # the generic path: consume_lines' breaker and all,
-                    # without the fused program's order turns
-                    _bind(batch.matcher)
-                    consume = (getattr(batch.matcher, "consume_lines_serial", None)
-                               or batch.matcher.consume_lines)
-                    results = consume(batch.lines, now)
-                    self.stats.note_batch(fallback=True)
-                else:
-                    _bind(batch.matcher)
-                    results, n_stale = batch.matcher.pipeline_finish(batch.state, now)
-                    if n_stale:
-                        self.stats.note_stale(n_stale)
-                    self.stats.note_batch(fallback=batch.recovered)
-            except Exception:  # noqa: BLE001 — a failed batch is counted, never silent
-                ok = False
-                results = None
-                log.exception("pipeline drain stage failed; %d lines counted as failed", n)
-                self.stats.note_drain_error(n)
-                if batch.state is not None:
-                    abort = getattr(batch.matcher, "pipeline_abort", None)
-                    if abort is not None:
-                        self._abort(abort, batch.state)
-                if self._health is not None:
-                    self._health.degraded(f"drain failure; {n} lines counted as failed")
+            sp = trace.span("drain", batch.trace_id, parent=batch.root_span.span_id)
+            with sp:
+                try:
+                    failpoints.check("pipeline.drain")
+                    now = self._now_fn()
+                    if batch.kind == "cmd":
+                        # a bad command loses itself, not the batch (the
+                        # handler owns its parse errors)
+                        for item in batch.lines:
+                            try:
+                                item.handler(item.raw)
+                            except Exception:  # noqa: BLE001 — logged; the next command runs
+                                log.exception("pipeline command dispatch failed")
+                        self.stats.note_commands(n)
+                    elif batch.state is None:
+                        # the generic path: consume_lines' breaker and all,
+                        # without the fused program's order turns
+                        _bind(batch.matcher)
+                        sp.note("fallback", "generic-drain")
+                        consume = (getattr(batch.matcher, "consume_lines_serial", None)
+                                   or batch.matcher.consume_lines)
+                        results = consume(batch.lines, now)
+                        self.stats.note_batch(fallback=True)
+                    else:
+                        _bind(batch.matcher)
+                        results, n_stale = batch.matcher.pipeline_finish(batch.state, now)
+                        if n_stale:
+                            sp.note("stale_dropped", n_stale)
+                            self.stats.note_stale(n_stale)
+                        self.stats.note_batch(fallback=batch.recovered)
+                except Exception:  # noqa: BLE001 — a failed batch is counted, never silent
+                    ok = False
+                    results = None
+                    log.exception("pipeline drain stage failed; %d lines counted as failed", n)
+                    self.stats.note_drain_error(n)
+                    if batch.state is not None:
+                        abort = getattr(batch.matcher, "pipeline_abort", None)
+                        if abort is not None:
+                            self._abort(abort, batch.state)
+                    if self._health is not None:
+                        self._health.degraded(f"drain failure; {n} lines counted as failed")
             if ok:
                 self.stats.note_processed(n)
                 if batch.t_read is not None:
                     self.stats.observe_e2e(time.monotonic() - batch.t_read)
                 if self._health is not None:
                     self._health.ok()
+            else:
+                # lines lost to a failed drain are an incident like a shed
+                # burst (debounced; outside every scheduler lock)
+                flightrec.notify("drain-error", f"{n} lines counted as failed")
             t_drain_ms = (time.perf_counter() - t0) * 1e3
+            batch.root_span.note("ok", ok)
+            trace.end(batch.root_span)
             if batch.kind != "cmd":
                 stage_ms = {"encode": batch.t_encode_ms, "device": batch.t_device_ms,
                             "drain": t_drain_ms}
@@ -684,9 +740,20 @@ class PipelineScheduler:
     # ---- observability ----
 
     def snapshot(self) -> dict:
-        """The JAX scheduler's metrics keys, with live gauges."""
+        """The 29 s line's keys (`obs/metrics.py`): resets the interval
+        maxima, so it is for the line's single periodic consumer only."""
+        out = self.stats.snapshot()
+        out.update(self._sizer.snapshot())
+        return self._live_gauges(out)
+
+    def prom_snapshot(self) -> dict:
+        """The non-destructive view for /metrics: totals, EWMAs and live
+        gauges; never steals the line's interval maxima."""
         out = self.stats.peek()
         out.update(self._sizer.snapshot())
+        return self._live_gauges(out)
+
+    def _live_gauges(self, out: dict) -> dict:
         with self._cond:
             out["PipelineBufferedLines"] = len(self._buf)
             out["PipelineInflightBatches"] = self._inflight

@@ -59,6 +59,23 @@ must answer identically; no fast-path fault, fail-open answer or tailer
 error may show. It prints lines/s through the tailer, line → ban-log
 latency, requests/s and the launches of kernels A, B and C.
 
+Then `pipeline` (the same app and writes with `pipeline_enabled: true`,
+and its fault drill), then `observability`: the same app and the same
+stamped writes with tracing and the profiler bridge, the profile routes,
+a flight recorder, the metrics line and a 1 s SLO sampler on. Its ban log
+must be `pipeline`'s byte for byte; every batch must carry its span tree;
+each offender's ban a provenance record whose trace id the span ring
+holds; `/metrics` must parse strictly (50 scrapes, timed) and count the
+lines written; a 1 s MetricsReporter must write the ported keys; no SLO
+may breach; a 2 s `/debug/torch/trace` capture over two writes must hold
+kernels A and B with every launch inside a device-stage span; a
+`matcher.device` drill must trip the breaker and leave one loadable
+incident bundle. The service's apps create the kernel's ipset outside
+standalone testing, so these phases run against `FakeKernelEdge`:
+`ipset` and `iptables` scripts first on PATH and a fake netlink socket
+(nothing reaches the machine's kernel); each checks that the ipset adds
+are its ban log's IptablesBlock IPs and that `/is_banned` sees them.
+
 The kernel phases time each shape three ways: `ms` (CUDA events around
 20 back-to-back wrapper calls; the host's enqueue bounds it when slower
 than the card, and `host_enqueue_us` says so), `device_ms` (the same 20
@@ -177,6 +194,21 @@ PIPELINE = dict(
     drill_lines=32,
     drill_recovery_s=3.0,
     drill_probe_s=1.0,
+)
+# the observability plane: the pipeline phase's app and its 16 writes with
+# tracing (and the profiler bridge), profile routes, a flight recorder, the
+# metrics line and a 1 s SLO sampler on; 50 /metrics scrapes, a 2 s
+# /debug/torch/trace capture over two writes, a 1 s MetricsReporter, and a
+# matcher.device drill of drill_lines-line writes
+OBSERVABILITY = dict(
+    n_rules=1000,
+    batch_lines=4096,
+    capacity=65536,
+    warm_capacity=131_072,
+    scrapes=50,
+    capture_s=2.0,
+    reporter_interval_s=1.0,
+    drill_lines=32,
 )
 SHA_HOST = "sha.example"   # the one host in sitewide_sha_inv_list (block)
 LOG_HOST = "example.org"
@@ -1561,6 +1593,7 @@ def service_config(workdir: str, patterns, capacity: int, warm_capacity: int,
         matcher_batch_lines=batch_lines,
         server_log_file=os.path.join(workdir, name + ".log"),
         banning_log_file=os.path.join(workdir, name + ".bans"),
+        metrics_log_file=os.path.join(workdir, name + ".metrics"),
         hmac_secret="chip-smoke-secret", sitewide_sha_inv_list={SHA_HOST: "block"},
         standalone_testing=False,
     )
@@ -1577,10 +1610,163 @@ def percentile(xs, q: float):
     return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
 
 
-def stamped(part):
-    """A write's lines stamped over the second before now."""
-    t = time.time()
+def stamped(part, t=None):
+    """A write's lines stamped over the second before `t` (now by default)."""
+    t = time.time() if t is None else t
     return [f"{t - 1 + j / len(part):.6f} {x}" for j, x in enumerate(part)]
+
+
+_FAKE_IPSET = """#!/bin/sh
+# a stand-in for ipset(8): the set lives in a file, nothing reaches the kernel
+S='{state}'
+echo "ipset $*" >> "$S/calls"
+case "$1" in
+  create) touch "$S/members"; exit 0 ;;
+  add) grep -qx "$3" "$S/members" 2>/dev/null || echo "$3" >> "$S/members"; exit 0 ;;
+  test) grep -qx "$3" "$S/members" 2>/dev/null; exit $? ;;
+  del) grep -vx "$3" "$S/members" > "$S/members.tmp"; mv "$S/members.tmp" "$S/members"; exit 0 ;;
+  list) echo "Name: $2"; echo "Type: hash:ip"; echo "Members:"
+        sed 's/$/ timeout 600/' "$S/members"; exit 0 ;;
+esac
+exit 1
+"""
+
+_FAKE_IPTABLES = """#!/bin/sh
+# a stand-in for iptables(8): the rule lives in a file, nothing reaches the kernel
+S='{state}'
+echo "iptables $*" >> "$S/calls"
+case "$1" in
+  -C) [ -s "$S/rules" ]; exit $? ;;
+  -I) echo "$*" >> "$S/rules"; exit 0 ;;
+esac
+exit 1
+"""
+
+
+class FakeNetlinkSocket:
+    """Stands in for the netlink batch writer's AF_NETLINK socket: each
+    IPSET_CMD_ADD message of a send goes into the fake set's file (so the
+    fake `ipset test`/`list` see it, as the kernel's set would show a
+    netlink add) and is acked; nothing is sent anywhere."""
+
+    def __init__(self, edge):
+        self.edge = edge
+        self.entries = []  # (ip, timeout) per message, in order
+        self._acks = b""
+
+    def send(self, buf: bytes) -> int:
+        import socket
+        import struct
+
+        from banjax_tpu_torch.effectors import ipset_netlink as nl
+
+        acks, off = [], 0
+        while off + nl.NLMSG_HDRLEN <= len(buf):
+            length, _, _, seq, _ = struct.unpack_from("=IHHII", buf, off)
+            msg = buf[off : off + length]
+            ip = socket.inet_ntoa(msg[-12:-8])
+            self.entries.append((ip, struct.unpack(">I", msg[-4:])[0]))
+            self.edge.add_member(ip)
+            acks.append(struct.pack("=IHHII", 20, nl.NLMSG_ERROR, 0, seq, 0) + struct.pack("=i", 0))
+            off += (length + 3) & ~3
+        self._acks = b"".join(acks)
+        return len(buf)
+
+    def recv(self, _n: int) -> bytes:
+        out, self._acks = self._acks, b""
+        return out
+
+    def close(self) -> None:
+        pass
+
+
+class FakeKernelEdge:
+    """The kernel edge without the kernel: `ipset` and `iptables` scripts
+    under `root/bin`, put first on PATH for this process and its children
+    (restored by `close`), keeping the set and the DROP rule in files under
+    `root/state`; and a `FakeNetlinkSocket` swapped into each app's batch
+    writer before its first ban. No ipset or iptables command and no
+    netlink message of the smoke run reaches the machine's kernel."""
+
+    def __init__(self, root: str):
+        import os
+        import shutil
+        import threading as _threading
+
+        self.state = os.path.join(root, "state")
+        bin_dir = os.path.join(root, "bin")
+        for d in (self.state, bin_dir):
+            os.makedirs(d, exist_ok=True)
+        for name, text in (("ipset", _FAKE_IPSET), ("iptables", _FAKE_IPTABLES)):
+            path = os.path.join(bin_dir, name)
+            with open(path, "w") as f:
+                f.write(text.format(state=self.state))
+            os.chmod(path, 0o755)
+        self._old_path = os.environ.get("PATH", "")
+        os.environ["PATH"] = bin_dir + os.pathsep + self._old_path
+        for name in ("ipset", "iptables"):
+            check(shutil.which(name) == os.path.join(bin_dir, name),
+                  f"the fake {name} comes first on PATH")
+        self._lock = _threading.Lock()
+
+    def add_member(self, ip: str) -> None:
+        import os
+
+        with self._lock:
+            path = os.path.join(self.state, "members")
+            have = set(open(path).read().split()) if os.path.exists(path) else set()
+            if ip not in have:
+                with open(path, "a") as f:
+                    f.write(ip + "\n")
+
+    def attach(self, app) -> FakeNetlinkSocket:
+        """The app's batch writer sends to a fake socket from here on."""
+        check(app.ipset_writer is not None and app.banner.ipset_batching,
+              "the app built its netlink batch writer")
+        sock = FakeNetlinkSocket(self)
+        app.ipset_writer._socket = lambda: sock
+        return sock
+
+    def calls(self) -> list:
+        import os
+
+        path = os.path.join(self.state, "calls")
+        return open(path).read().splitlines() if os.path.exists(path) else []
+
+    def close(self) -> None:
+        import os
+
+        os.environ["PATH"] = self._old_path
+
+
+def kernel_edge_check(app, sock, ban_log: str, timeout_s: float) -> dict:
+    """The IPs the app's bans added to the (fake) kernel set must be the
+    ban log's IptablesBlock IPs; /is_banned must list one of them and not
+    an NginxBlock IP. Returns the figures for the phase's line."""
+    rows = [json.loads(r) for r in ban_log.splitlines() if r]
+    blocked = {r["client_ip"] for r in rows if r["action"] == "IptablesBlock"} - {"127.0.0.1"}
+    nginx = sorted({r["client_ip"] for r in rows if r["action"] == "NginxBlock"} - blocked)
+    wait_for(lambda: app.ipset_writer.queue_depth() == 0
+             and {ip for ip, _ in sock.entries} >= blocked
+             and app.ipset_stats.prom_snapshot()["batch_entries_total"] == len(sock.entries),
+             "the ipset adds", timeout_s)
+    added = {ip for ip, _ in sock.entries}
+    stats = app.ipset_stats.prom_snapshot()
+    _, yes = http_json(app.port, "GET", f"/is_banned?ip={min(blocked)}") if blocked else (0, {})
+    _, no = http_json(app.port, "GET", f"/is_banned?ip={nginx[0]}") if nginx else (0, {})
+    listed = lambda body: {e.split(" ", 1)[0] for e in body.get("banned") or []}  # noqa: E731
+    out = {"iptables_block_ips": len(blocked), "nginx_block_ips": len(nginx),
+           "ipset_adds": len(sock.entries), "ipset_stats": stats,
+           "is_banned_blocked": bool(blocked) and min(blocked) in listed(yes),
+           "is_banned_nginx": bool(nginx) and nginx[0] in listed(no)}
+    check(blocked and nginx, "the ban log has IptablesBlock and NginxBlock IPs")
+    check(added == blocked, f"the ipset adds are the ban log's IptablesBlock IPs: {out}")
+    check(stats["fallback_total"] == stats["errors_total"] == stats["queue_shed_total"] == 0
+          and stats["batch_entries_total"] == len(sock.entries),
+          f"every add went through the netlink batches: {stats}")
+    check(out["is_banned_blocked"] and not out["is_banned_nginx"],
+          "/is_banned lists an IptablesBlock IP and not an NginxBlock IP")
+    return out
 
 
 def wait_for(cond, what: str, timeout_s: float) -> None:
@@ -1598,7 +1784,7 @@ def append_lines(path: str, lines) -> None:
 
 def run_service(dev, n_rules, batch_lines, capacity, warm_capacity, writes, rotate_after,
                 n_offenders, offender_hits, threads, per_kind, cross_check, warmup_lines,
-                alone_requests=256, timeout_s=300.0):
+                edge, alone_requests=256, timeout_s=300.0):
     """The service on device `dev`: `BanjaxApp` from the deploy file tails
     an access log (the writes, one rotation), bans into its ban log and
     decision table, and answers `/auth_request` on an ephemeral port to
@@ -1650,6 +1836,7 @@ def run_service(dev, n_rules, batch_lines, capacity, warm_capacity, writes, rota
     nfa_match.KERNEL.launches = fmw.KERNEL.launches = pow_verify.KERNEL.launches = 0
     t0 = time.perf_counter()
     app = BanjaxApp(cfg_path, device=dev)
+    sock = edge.attach(app)
     # every batch the tailer hands over: its lines, the clock then, the
     # write it came from, when it was consumed, and the bans it made
     batches, current = [], [None]
@@ -1709,6 +1896,7 @@ def run_service(dev, n_rules, batch_lines, capacity, warm_capacity, writes, rota
                     latency[ip] = t_done - appended_at[k]
         check(app.tailer.errors == 0, f"no tailer error ({app.tailer.last_error!r})")
         check(len(latency) == len(offenders), "every offender was banned by the log path")
+        kernel_edge = kernel_edge_check(app, sock, app_ban_log, timeout_s)
         # batches over the deploy file's matcher_latency_budget_ms (counted,
         # not breaker failures in the port)
         budget_trips = app._matcher.budget_trips
@@ -1833,6 +2021,7 @@ def run_service(dev, n_rules, batch_lines, capacity, warm_capacity, writes, rota
     t_c = time.perf_counter()
     cpu_app = BanjaxApp(service_config(workdir, patterns, capacity, warm_capacity, batch_lines,
                                        "cpu"), device="cpu")
+    edge.attach(cpu_app)
     try:
         for ip, e in entries.items():
             cpu_app.dynamic_lists.update(ip, e.expires, e.decision, e.from_baskerville, e.domain)
@@ -1879,7 +2068,7 @@ def run_service(dev, n_rules, batch_lines, capacity, warm_capacity, writes, rota
         "wrong_statuses": len(wrong), "first_wrong": wrong[:3],
         "fastpath_hits": hits, "fastpath_misses": misses, "serve_stats": stats,
         "launches": launches, "device_memory_bytes": mem, "tailer_errors": tailer_errors,
-        "budget_trips": budget_trips,
+        "budget_trips": budget_trips, "kernel_edge": kernel_edge,
         "cpu_replay": {"requests": len(cpu_answers), "differing": len(replay_diff),
                        "first_differing": replay_diff[:3], "seconds": cross_s,
                        "fastpath_hits": cpu_stats["hits_total"]},
@@ -1921,7 +2110,7 @@ def http_json(port: int, method: str, path: str, body=None):
 
 def run_pipeline(dev, service, n_rules, batch_lines, capacity, warm_capacity, writes,
                  rotate_after, n_offenders, offender_hits, warmup_lines, drill_lines,
-                 drill_recovery_s, drill_probe_s, timeout_s=300.0) -> dict:
+                 drill_recovery_s, drill_probe_s, edge, stamp_base, timeout_s=300.0):
     """The service's app and writes with `pipeline_enabled: true` on device
     `dev`: the tailer submits to the scheduler, whose device thread runs
     kernels A and B and whose drain thread writes the ban log. The ban log
@@ -1934,8 +2123,11 @@ def run_pipeline(dev, service, n_rules, batch_lines, capacity, warm_capacity, wr
     path's), then, after a reload, `matcher.device` for
     breaker_failure_threshold firings (the breaker opens, health reads
     degraded, the refused lines are counted exactly, the probe closes it,
-    and a later write's bans land). Returns the phase's launches of A, B
-    and C. Raises on any failed check."""
+    and a later write's bans land). The writes are stamped from
+    `stamp_base` (ahead of the clock, so that the `observability` phase can
+    append the same lines, fresh). Returns the phase's launches of A, B
+    and C, and the writes and their ban log for `observability`. Raises on
+    any failed check."""
     import os
     import tempfile
 
@@ -1966,9 +2158,10 @@ def run_pipeline(dev, service, n_rules, batch_lines, capacity, warm_capacity, wr
         path = service_config(workdir, patterns, capacity, warm_capacity, batch_lines, name,
                               pipeline_enabled=True, **keys)
         app = BanjaxApp(path, device=dev)
+        rec_sock = edge.attach(app)
         # every drained batch: its lines, when, the write it came from,
         # whether it was processed, and the bans it made
-        rec = {"batches": [], "bans": 0, "write": None, "targets": []}
+        rec = {"batches": [], "bans": 0, "write": None, "targets": [], "sock": rec_sock}
 
         def on_results(lines, results):
             bans = app.banner.bans
@@ -2016,11 +2209,11 @@ def run_pipeline(dev, service, n_rules, batch_lines, capacity, warm_capacity, wr
         app.pipeline.stats.reset_e2e()
         st0 = dict(app.pipeline.stats.stage_seconds)
         appended_at = {}
+        written = [stamped(stream[k * batch_lines : (k + 1) * batch_lines], stamp_base + 2.0 * k)
+                   for k in range(writes)]
         t_log = time.perf_counter()
         for k in range(writes):
-            appended_at[k] = write(app, rec, log_path,
-                                   stamped(stream[k * batch_lines : (k + 1) * batch_lines]),
-                                   f"pipelined write {k + 1}", k)
+            appended_at[k] = write(app, rec, log_path, written[k], f"pipelined write {k + 1}", k)
             if k + 1 == rotate_after:
                 os.replace(log_path, log_path + ".1")
                 open(log_path, "w").close()
@@ -2049,6 +2242,7 @@ def run_pipeline(dev, service, n_rules, batch_lines, capacity, warm_capacity, wr
         ring_size = app.pipeline.ring_size
         with open(app.banner._ban_log.name) as f:
             ban_log = f.read()
+        kernel_edge = kernel_edge_check(app, rec["sock"], ban_log, timeout_s)
         # the service phase's request prefix, answered by this app
         c = HttpClient(app.port)
         try:
@@ -2186,6 +2380,7 @@ def run_pipeline(dev, service, n_rules, batch_lines, capacity, warm_capacity, wr
         "synchronous_host_us_per_line_by_stage": service["host_us_per_line_by_stage"],
         "launches": launches, "launches_by_thread": by_thread,
         "budget_trips": budget_trips, "matcher_batches": matcher_batches,
+        "kernel_edge": kernel_edge,
         "counters": counters, "totals": totals,
         "ban_log_lines": ban_log.count("\n"), "direct_ban_log_identical": direct_log == ban_log,
         "direct_replay_s": direct_s,
@@ -2232,6 +2427,344 @@ def run_pipeline(dev, service, n_rules, batch_lines, capacity, warm_capacity, wr
           "the probe closed the breaker and a later write's bans landed")
     acc = d2["accounting"]
     check(acc[0] == acc[1] + acc[2] + acc[3], "the drill's accounting identity")
+    return launches, {"written": written, "rotate_after": rotate_after, "ban_log": ban_log,
+                      "lines_per_s": n_lines / log_wall, "warm": warm,
+                      "filler": filler[: 8 * drill_lines], "offenders": sorted(offenders),
+                      "capture_lines": filler[-batch_lines // 2:], "stages": stages,
+                      "batches": n_batches}
+
+
+def http_text(port: int, path: str):
+    """(status, text, seconds) of one GET to the app."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        t = time.perf_counter()
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        return resp.status, body, time.perf_counter() - t
+    finally:
+        conn.close()
+
+
+# kernel A's and B's CUDA function names, as a torch.profiler capture shows them
+KERNEL_NAMES = {"nfa_match": ("nfa_carry_kernel", "nfa_free_kernel", "length_order_kernel"),
+                "window_scan": ("window_scan_kernel",)}
+# the scheduler's spans whose threads launch kernels A and B: the device
+# stage (submit, the fused program inside it, collect) and the drain (the
+# classic fallback of a gated chunk, and the classic pend)
+LAUNCH_SPANS = ("submit", "program-ab-fused", "collect", "drain", "effector-replay")
+DEVICE_STAGE_SPANS = ("submit", "program-ab-fused", "collect")
+
+
+def capture_kernels(trace_path: str) -> dict:
+    """Kernels A and B in a torch.profiler Chrome trace: their counts, and
+    where each one's launch call (the runtime event with its correlation
+    id) lies among the host's record_function spans of the same thread."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kinds = {}
+    for e in events:
+        kinds[e.get("cat", "")] = kinds.get(e.get("cat", ""), 0) + 1
+    kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    spans = [e for e in events if e.get("cat") == "user_annotation" and e.get("ph") == "X"
+             and e.get("name") in LAUNCH_SPANS]
+    out = {"event_categories": kinds, "kernels": {}, "launch_in_span": {}, "unmatched": []}
+    for name, fns in KERNEL_NAMES.items():
+        mine = [k for k in kernels if any(fn in k["name"] for fn in fns)]
+        out["kernels"][name] = len(mine)
+        where = {}
+        for k in mine:
+            launch = launches.get(k.get("args", {}).get("correlation"))
+            if launch is None:
+                out["unmatched"].append(k["name"][:60])
+                continue
+            t0, t1 = launch["ts"], launch["ts"] + launch.get("dur", 0)
+            inside = [sp["name"] for sp in spans
+                      if sp["pid"] == launch["pid"] and sp["tid"] == launch["tid"]
+                      and sp["ts"] <= t0 and t1 <= sp["ts"] + sp["dur"]]
+            # the innermost span names where it ran
+            label = next((n for n in ("program-ab-fused", "effector-replay", "submit",
+                                      "collect", "drain") if n in inside), "none")
+            where[label] = where.get(label, 0) + 1
+        out["launch_in_span"][name] = where
+    return out
+
+
+def run_observability(dev, pipeline, n_rules, batch_lines, capacity, warm_capacity, scrapes,
+                      capture_s, reporter_interval_s, drill_lines, edge, timeout_s=300.0) -> dict:
+    """The observability plane on device `dev`: the `pipeline` phase's app
+    with `trace_enabled`, `trace_jax_annotations`, `profile`, a flight
+    recorder and `metrics_log_file` in a temp dir under build/, and
+    `slo_sample_seconds: 1`, appending the `pipeline` phase's 16 writes
+    (the same stamped lines). Checks: the ban log is that phase's, byte for
+    byte; every batch has its admission -> encode -> submit -> collect ->
+    drain spans with consistent parents; each offender's ban has a
+    rate_limit provenance record whose trace id the span ring holds;
+    `/metrics` parses strictly, declares only registry families and counts
+    the lines written; a MetricsReporter at a 1 s interval writes the
+    ported keys; no SLO is breached; then a `/debug/torch/trace` capture
+    over two more writes (after the timed writes and the SLO reading: the
+    profiler slows the host) holds kernels A and B, each launch inside a
+    pipeline span;
+    a `matcher.device` drill trips the breaker and leaves one loadable
+    incident bundle. Returns the phase's launches of A, B and C."""
+    import os
+    import tempfile
+    import threading as _threading
+
+    from banjax_tpu_torch import workload
+    from banjax_tpu_torch.cli import BanjaxApp, RegexStatesView
+    from banjax_tpu_torch.matcher.kernels import fused_match_window as fmw
+    from banjax_tpu_torch.matcher.kernels import nfa_match, pow_verify
+    from banjax_tpu_torch.obs import registry
+    from banjax_tpu_torch.obs.exposition import parse_text_format
+    from banjax_tpu_torch.obs.metrics import MetricsReporter
+
+    kernels = {"nfa_match": nfa_match.KERNEL, "window_scan": fmw.KERNEL,
+               "pow_verify": pow_verify.KERNEL}
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    workdir_obj = tempfile.TemporaryDirectory(prefix="observability-",
+                                              dir=os.path.join(here, "build"))
+    workdir = workdir_obj.name
+    patterns = workload.generate_rules(n_rules, seed=SEED)
+    offenders = pipeline["offenders"]
+    incidents = os.path.join(workdir, "incidents")
+    path = service_config(workdir, patterns, capacity, warm_capacity, batch_lines, "obs",
+                          pipeline_enabled=True, trace_enabled=True, trace_jax_annotations=True,
+                          profile=True, flightrec_dir=incidents,
+                          metrics_log_file=os.path.join(workdir, "metrics.log"),
+                          slo_sample_seconds=1.0)
+    log_path = os.path.join(workdir, "obs.log")
+    app = BanjaxApp(path, device=dev)
+    sock = edge.attach(app)
+    rec = {"batches": []}
+    app.pipeline.on_results = lambda lines, results: rec["batches"].append(
+        (len(lines), results is not None))
+
+    def drained():
+        return sum(n for n, _ in rec["batches"])
+
+    def write(lines, tag):
+        target = drained() + len(lines)
+        append_lines(log_path, lines)
+        wait_for(lambda: drained() >= target, tag, timeout_s)
+
+    app.start_background(port=0)
+    setup_s = time.perf_counter() - t_phase
+    reporter = None
+    try:
+        wait_for(app.tailer.opened.is_set, "the tailer to open the log", timeout_s)
+        write(stamped(pipeline["warm"]), "the warm-up batch")
+        for kern in kernels.values():
+            kern.reset_launches()
+        app._matcher.clock.reset()
+        n_lines, b0 = 0, len(rec["batches"])
+        t_log = time.perf_counter()
+        for k, lines in enumerate(pipeline["written"]):
+            write(lines, f"observed write {k + 1}")
+            n_lines += len(lines)
+            if k + 1 == pipeline["rotate_after"]:
+                os.replace(log_path, log_path + ".1")
+                open(log_path, "w").close()
+        log_wall = time.perf_counter() - t_log
+        stages = stage_us(app._matcher, n_lines)
+        budget_trips = app._matcher.budget_trips
+        n_batches = len(rec["batches"]) - b0
+        with open(app.banner._ban_log.name) as f:
+            ban_log = f.read()
+        kernel_edge = kernel_edge_check(app, sock, ban_log, timeout_s)
+
+        # ---- spans: one tree a batch ----
+        code, trace = http_json(app.port, "GET", "/debug/trace")
+        spans = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+        by_id = {e["args"]["span_id"]: e for e in spans}
+        traces = {}
+        for e in spans:
+            traces.setdefault(e["args"]["trace_id"], []).append(e)
+        batch_traces = {t: es for t, es in traces.items() if any(e["name"] == "admission"
+                                                                  for e in es)}
+        want_parent = {"encode": "admission", "encode-shard": "encode", "submit": "admission",
+                       "collect": "admission", "drain": "admission",
+                       "program-ab-fused": "submit", "effector-replay": "drain"}
+        bad_trees = []
+        for t, es in batch_traces.items():
+            names = {e["name"] for e in es}
+            ok = {"admission", "encode", "submit", "collect", "drain"} <= names
+            for e in es:
+                parent = by_id.get(e["args"].get("parent_span_id"))
+                if e["name"] in want_parent:
+                    ok = ok and parent is not None and parent["name"] == want_parent[e["name"]] \
+                        and parent["args"]["trace_id"] == t
+            if not ok:
+                bad_trees.append(sorted(names))
+        spans_per_batch = sum(len(es) for es in batch_traces.values()) / max(1, len(batch_traces))
+
+        # ---- provenance: every offender's ban, attributed to a held batch ----
+        unattributed = []
+        for ip in offenders:
+            _, explain = http_json(app.port, "GET", f"/decisions/explain?ip={ip}")
+            recs = [r for r in explain["records"] if r["source"] == "rate_limit"]
+            if not recs or not all(r["rule"] and r["trace_id"] in traces for r in recs):
+                unattributed.append(ip)
+
+        # ---- /metrics, and the 29 s line at a 1 s interval ----
+        reporter_path = os.path.join(workdir, "metrics-1s.log")
+        reporter = MetricsReporter(
+            reporter_path, app.dynamic_lists, RegexStatesView(app), app.failed_challenge_states,
+            interval_seconds=reporter_interval_s, matcher_getter=lambda: app._matcher,
+            health=app.health, pipeline_getter=lambda: app.pipeline,
+            serve_stats=app.serve_stats, ipset_stats=app.ipset_stats)
+        reporter.start()
+        sketch = app._matcher.traffic_sketch
+        pulled0 = sketch.pull_bytes_total if sketch is not None else 0
+        scrape_ms, text = [], ""
+        for _ in range(scrapes):
+            code, text, dt = http_text(app.port, "/metrics")
+            check(code == 200, "/metrics answers 200")
+            scrape_ms.append(1e3 * dt)
+        scrape_d2h = (sketch.pull_bytes_total - pulled0) if sketch is not None else 0
+        fams = parse_text_format(text)
+
+        def sample(fam, **labels):
+            return [v for _, lab, v in fams.get(fam, {"samples": []})["samples"]
+                    if all(lab.get(k) == w for k, w in labels.items())]
+
+        written = len(pipeline["warm"]) + n_lines
+        breached = sample("banjax_slo_breached")
+        wait_for(lambda: os.path.exists(reporter_path)
+                 and open(reporter_path).read().count("\n") >= 2, "two metrics lines",
+                 10 * reporter_interval_s + 10)
+        reporter.stop()
+        rows = [json.loads(r) for r in open(reporter_path).read().splitlines()]
+        ported_keys = ("Time", "LenExpiringBlocks", "MatcherLinesTotal", "PipelineAdmittedLines",
+                       "DeviceWindowsOccupancy", "MatcherBreakerState", "IpsetBatchEntries",
+                       "HealthStatus")
+
+        # ---- the capture, over two more writes (after the timed writes and
+        # the SLO reading: a profiler session slows the host's stages) ----
+        code, warm_cap = http_json(app.port, "GET", "/debug/torch/trace?seconds=0.2")
+        check(code == 200, f"/debug/torch/trace answers: {warm_cap}")  # loads CUPTI
+        capture = {}
+
+        def take_capture():
+            capture["code"], capture["body"] = http_json(
+                app.port, "GET", f"/debug/torch/trace?seconds={capture_s}")
+
+        cap_thread = _threading.Thread(target=take_capture, name="capture")
+        cap_thread.start()
+        time.sleep(0.25)  # the profiler starts on the server's thread
+        captured_writes = []
+        extra = pipeline["capture_lines"]
+        for k in range(2):
+            write(stamped(extra[k * len(extra) // 2 : (k + 1) * len(extra) // 2]),
+                  f"captured write {k + 1}")
+            if cap_thread.is_alive():
+                captured_writes.append(k)
+        cap_thread.join(timeout_s)
+        launches = {n: kern.launches for n, kern in kernels.items()}
+        cap = {}
+        if capture.get("code") == 200:
+            cap = capture_kernels(capture["body"]["trace_file"])
+            keep = os.environ.get("CHIP_SMOKE_KEEP_CAPTURE")
+            if keep:
+                import shutil
+
+                os.makedirs(keep, exist_ok=True)
+                shutil.copy(capture["body"]["trace_file"],
+                            os.path.join(keep, "observability-capture.json"))
+
+        # ---- the drill: the breaker trips, one bundle is captured ----
+        threshold = app._matcher.breaker.failure_threshold
+        code, body = http_json(app.port, "POST", "/debug/failpoints",
+                               {"arm": [{"name": "matcher.device", "count": threshold}]})
+        check(code == 200, "/debug/failpoints armed matcher.device")
+        for k in range(3):
+            write(stamped(pipeline["filler"][k * drill_lines : (k + 1) * drill_lines]),
+                  f"drill write {k + 1}")
+        trips = app._matcher.breaker.trip_count
+        code, listing = http_json(app.port, "GET", "/debug/incidents")
+        bundles = listing["incidents"]
+        loaded = {}
+        for b in bundles:
+            for fname in b["files"]:
+                c, body, _ = http_text(app.port, f"/debug/incidents?name={b['name']}&file={fname}")
+                check(c == 200, f"incident file {fname} is served")
+                if fname.endswith(".json"):
+                    loaded[fname] = sorted(json.loads(body))
+                else:
+                    loaded[fname] = len(parse_text_format(body))
+        from banjax_tpu_torch.resilience import failpoints
+
+        failpoints.disarm()
+    finally:
+        if reporter is not None:
+            reporter.stop()
+        app.stop_background()
+    workdir_obj.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    capture_summary = {k: cap.get(k) for k in ("kernels", "launch_in_span", "unmatched")}
+    emit({
+        "phase": "observability",
+        "config": "the pipeline phase's app with trace_enabled, trace_jax_annotations, profile, "
+                  "flightrec_dir, metrics_log_file and slo_sample_seconds: 1; provenance and "
+                  "SLO on (the JAX defaults)",
+        "setup_s": setup_s, "writes": len(pipeline["written"]), "lines": n_lines,
+        "log_wall_s": log_wall,
+        "lines_per_s": {"observed": n_lines / log_wall, "pipeline_phase": pipeline["lines_per_s"]},
+        "ban_log_identical_to_pipeline_phase": ban_log == pipeline["ban_log"],
+        "ban_log_lines": ban_log.count("\n"), "kernel_edge": kernel_edge,
+        "host_us_per_line_by_stage": {"observed": stages, "pipeline_phase": pipeline["stages"]},
+        "budget_trips": budget_trips,
+        "batches": {"observed": n_batches, "pipeline_phase": pipeline["batches"]},
+        "batch_traces": len(batch_traces),
+        "spans_per_batch": spans_per_batch, "bad_trees": bad_trees[:3],
+        "offenders_unattributed": unattributed,
+        "scrape_ms": {"n": scrapes, "p50": percentile(scrape_ms, 0.5),
+                      "p99": percentile(scrape_ms, 0.99), "max": max(scrape_ms)},
+        "scrape_families": len(fams), "d2h_bytes_over_scrapes": scrape_d2h,
+        "d2h_bytes_per_scrape": scrape_d2h / scrapes,
+        "slo_breached": breached, "metrics_lines_1s": len(rows),
+        "capture": {"code": capture.get("code"), "seconds": capture_s,
+                    "writes_inside": captured_writes,
+                    "event_categories": cap.get("event_categories"), **capture_summary},
+        "drill": {"trips": trips, "bundles": [(b["name"], b["reason"]) for b in bundles],
+                  "bundle_files": loaded},
+        "launches": launches, "phase_s": phase_s,
+    })
+    check(ban_log == pipeline["ban_log"] and ban_log.count("\n") > 0,
+          "the ban log equals the pipeline phase's (observability on against off)")
+    check(batch_traces and not bad_trees and len(batch_traces) >= len(pipeline["written"]) // 2,
+          f"every batch has its span tree: {bad_trees[:2]}")
+    check(not unattributed, f"each offender's ban has an attributed provenance record: {unattributed[:3]}")
+    check(set(fams) <= set(registry.PROM_FAMILIES), "every /metrics family is declared")
+    check(sample("banjax_pipeline_admitted_lines_total") == [float(written)]
+          and sample("banjax_pipeline_processed_lines_total") == [float(written)]
+          and sample("banjax_matcher_lines_total") == [float(written)],
+          "the /metrics lines counters equal the lines written")
+    check(len(rows) >= 2 and all(k in r for r in rows for k in ported_keys)
+          and all(registry.is_declared_line_key(k) for r in rows for k in r),
+          "the 1 s metrics line carries the ported keys")
+    check(breached and all(v == 0 for v in breached), f"no SLO is breached: {breached}")
+    check(capture.get("code") == 200 and len(captured_writes) >= 2,
+          f"the capture ran across two writes: {captured_writes}")
+    # (the plain versions on the CPU launch no kernel)
+    check(dev.type != "cuda" or (all(cap["kernels"][n] > 0 for n in KERNEL_NAMES)
+                                 and not cap["unmatched"]),
+          f"the capture holds kernels A and B with their launches: {capture_summary}")
+    check(dev.type != "cuda" or all(
+        set(w) <= set(LAUNCH_SPANS) and sum(w.get(n, 0) for n in DEVICE_STAGE_SPANS) > 0
+        for w in cap["launch_in_span"].values()),
+        f"each launch of A and B lies inside a pipeline span: {cap['launch_in_span']}")
+    check(trips == 1 and len(bundles) == 1 and set(loaded) == {
+        "trace.json", "metrics.prom", "provenance.json", "meta.json", "traffic.json"},
+        f"the drill tripped the breaker and left one loadable bundle: {bundles}")
     return launches
 
 
@@ -2255,17 +2788,34 @@ def main() -> int:
         k["launches_by_path"] = {"main_path": main, "tiering": tier_launches[k["name"]]}
         k["launches"] = main + tier_launches[k["name"]]
     kernels += run_challenge(dev, **CHALLENGE, load=load)
-    t0 = time.perf_counter()
-    service, service_summary = run_service(dev, **SERVICE)
-    emit({"phase": "service_seconds", "seconds": time.perf_counter() - t0})
-    t0 = time.perf_counter()
-    pipeline = run_pipeline(dev, service_summary, **PIPELINE)
-    emit({"phase": "pipeline_seconds", "seconds": time.perf_counter() - t0})
+    import os
+
+    # the service's apps create the kernel's ipset: fakes stand in for it
+    edge = FakeKernelEdge(os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                       "fake-kernel-edge"))
+    try:
+        t0 = time.perf_counter()
+        service, service_summary = run_service(dev, **SERVICE, edge=edge)
+        emit({"phase": "service_seconds", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        # the pipeline's writes are stamped ahead of the clock, so that the
+        # observability phase can append the same lines, fresh
+        pipeline, writes = run_pipeline(dev, service_summary, **PIPELINE, edge=edge,
+                                        stamp_base=time.time() + 600.0)
+        emit({"phase": "pipeline_seconds", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        observed = run_observability(dev, writes, **OBSERVABILITY, edge=edge)
+        emit({"phase": "observability_seconds", "seconds": time.perf_counter() - t0})
+        calls = edge.calls()
+    finally:
+        edge.close()
+    emit({"phase": "kernel_edge", "fake_calls": len(calls), "first_calls": calls[:3]})
     for k in kernels:
         k.setdefault("launches_by_path", {"challenge_path": k["launches"]})
         k["launches_by_path"]["service"] = service[k["name"]]
         k["launches_by_path"]["pipeline"] = pipeline[k["name"]]
-        k["launches"] += service[k["name"]] + pipeline[k["name"]]
+        k["launches_by_path"]["observability"] = observed[k["name"]]
+        k["launches"] += service[k["name"]] + pipeline[k["name"]] + observed[k["name"]]
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {

@@ -11,6 +11,8 @@ the generation moves), the two ban logs must stay byte-identical, and so
 must the window states. The JAX app runs with its ipset off
 (`init_ipset` returns None, as in standalone testing)."""
 
+import io
+import json
 import os
 import random
 import threading
@@ -20,10 +22,22 @@ import pytest
 import yaml
 
 from banjax_tpu import cli as jax_cli
+from banjax_tpu_torch import cli as port_cli
 from banjax_tpu_torch import workload
 from banjax_tpu_torch.cli import BanjaxApp, RegexStatesView
 from tests.differential.test_tpu_matcher import CONFIG_YAML
 from tests.test_torch_matcher import _one_torch_thread  # noqa: F401
+from tests.test_torch_obs import obs_reset  # noqa: F401
+
+
+@pytest.fixture(autouse=True)
+def _port_ipset_off(monkeypatch):
+    """The port's app creates the kernel's ipset outside standalone
+    testing; here it runs with its ipset off, as the JAX app does
+    (`init_ipset` returns None). tests/test_torch_ipset.py covers the
+    kernel edge."""
+    monkeypatch.setattr(port_cli, "init_ipset", lambda *a, **k: None)
+
 
 APP_KEYS = """
 matcher: tpu
@@ -178,3 +192,143 @@ def test_tailed_ban_logs_are_identical_across_rotation_truncation_and_reload(app
     bans.append(_same_ban_logs(tmp_path, jax_app, port_app, "after reload"))
     assert bans[0] > 0 and bans[1] > bans[0] and bans[2] > bans[1] and bans[3] > bans[2], bans
     assert port_app.health.snapshot()["status"] == "healthy"
+
+
+# ------------------------------------------------- the observability plane
+
+# values that depend on time or on where the tailer and the sizer cut
+# batches, which the two apps need not do alike
+_TIMED = ("Time", "PerSec", "Ms", "Latency", "Ewma", "Utilization", "Skew", "Age", "Target",
+          "Batches", "Buffered", "Inflight")
+
+
+# the JAX matcher's health component for its single-kernel choice: the
+# port runs only the single-program commit and has no such component
+JAX_ONLY_HEALTH = "matcher-single-kernel"
+
+
+def _deterministic(values):
+    return {k: v for k, v in values.items() if not any(t in k for t in _TIMED)}
+
+
+def _prom(text, parse):
+    """{(family, sample, labels): value} of the deterministic samples."""
+    out = {}
+    for fam, ent in parse(text).items():
+        if ent["type"] == "histogram" or any(t.lower() in fam for t in
+                                              ("seconds", "ms", "batches", "target", "buffered",
+                                               "inflight", "utilization", "skew", "fraction")):
+            continue
+        for name, labels, value in ent["samples"]:
+            out[(fam, name, tuple(sorted(labels.items())))] = value
+    return out
+
+
+def test_observability_agrees_with_the_jax_app(tmp_path, monkeypatch):
+    """Both apps pipelined, tracing on, tailing one log: the metrics line's
+    and /metrics' deterministic values, the provenance records and the span
+    tree of every batch agree, and the JAX keys the port leaves out are
+    exactly the documented ones."""
+    from banjax_tpu.obs import exposition as jax_expo
+    from banjax_tpu.obs import metrics as jax_metrics
+    from banjax_tpu.obs import provenance as jax_prov
+    from banjax_tpu.obs import trace as jax_trace
+    from banjax_tpu_torch.obs import exposition as port_expo
+    from banjax_tpu_torch.obs import metrics as port_metrics
+    from banjax_tpu_torch.obs import provenance as port_prov
+    from banjax_tpu_torch.obs import registry as port_reg
+    from banjax_tpu_torch.obs import trace as port_trace
+    from tests.test_torch_obs import DIFFERENT_MEANING
+    from tests.test_torch_pipeline import _app_config, _Drained, pipeline_lines
+
+    monkeypatch.setattr(jax_cli, "init_ipset", lambda *a, **k: None)
+    log_path = tmp_path / "access.log"
+    log_path.write_text("")
+    apps = []
+    for name in ("jax", "port"):
+        path = _app_config(tmp_path, name, log_path)
+        cfg = yaml.safe_load(path.read_text())
+        cfg.update(trace_enabled=True, slo_sample_seconds=0)
+        path.write_text(yaml.safe_dump(cfg))
+        apps.append(jax_cli.BanjaxApp(str(path)) if name == "jax"
+                    else BanjaxApp(str(path), device="cpu"))
+    jax_app, port_app = apps
+    drained = (_Drained(jax_app.pipeline), _Drained(port_app.pipeline))
+    tailed = (_Counted(jax_app), _Counted(port_app))
+    try:
+        jax_app.pipeline.start()
+        jax_app.tailer.start()
+        port_app.start_workers()
+        assert jax_app.tailer.opened.wait(10) and port_app.tailer.opened.wait(10)
+        total = 0
+        for step in range(4):
+            batch = pipeline_lines(time.time() + 60, 120, seed=60 + step, span=3.0)
+            with open(log_path, "a") as f:
+                f.write("\n".join(batch) + "\n")
+            total += len(batch)
+            _wait_consumed(tailed, total)
+            _wait_consumed(drained, total)
+        assert (tmp_path / "port-bans.log").read_text() == (tmp_path / "jax-bans.log").read_text()
+
+        # the metrics line
+        lines = []
+        for write, app, view, extra in (
+            (jax_metrics.write_metrics_line, jax_app, jax_cli.RegexStatesView(jax_app),
+             (jax_app._matcher, None, jax_app.health, jax_app.pipeline)),
+            (port_metrics.write_metrics_line, port_app, RegexStatesView(port_app),
+             (port_app._matcher, port_app.health, port_app.pipeline, port_app.serve_stats,
+              port_app.ipset_stats)),
+        ):
+            out = io.StringIO()
+            write(out, app.dynamic_lists, view, app.failed_challenge_states, *extra)
+            lines.append(json.loads(out.getvalue()))
+        jax_line, port_line = lines
+        assert all(port_reg.is_declared_line_key(k) for k in port_line)
+        assert set(port_line) <= set(jax_line)
+        assert set(jax_line) - set(port_line) == \
+            (DIFFERENT_MEANING & set(jax_line)) | {f"Health_{JAX_ONLY_HEALTH}"}
+        assert _deterministic(port_line) == {k: v for k, v in _deterministic(jax_line).items()
+                                             if k in port_line}
+        assert port_line["MatcherLinesTotal"] == total == port_line["PipelineAdmittedLines"]
+
+        # /metrics, each parsed by both strict parsers
+        texts = (jax_app._render_metrics_text(), port_app.render_metrics_text())
+        parsed = [[_prom(t, parse) for parse in (jax_expo.parse_text_format,
+                                                  port_expo.parse_text_format)] for t in texts]
+        assert parsed[0][0] == parsed[0][1] and parsed[1][0] == parsed[1][1]
+        jax_prom, port_prom = parsed[0][0], parsed[1][0]
+        fams = port_expo.parse_text_format(texts[1])
+        assert set(fams) <= set(port_reg.PROM_FAMILIES)
+        assert port_prom == {k: v for k, v in jax_prom.items()
+                             if k[0] in fams and ("component", JAX_ONLY_HEALTH) not in k[2]}
+        assert port_prom[("banjax_matcher_lines_total", "banjax_matcher_lines_total", ())] == total
+
+        # the provenance records and the span tree of every batch
+        def records(pv):
+            return sorted((r["source"], r["ip"], r["decision"], r["rule"], r["rule_index"],
+                           r["hits"]) for r in pv.get_ledger().tail(100_000))
+
+        assert records(port_prov) == records(jax_prov)
+        assert any(r[0] == "rate_limit" for r in records(port_prov))
+        trees = []
+        for tr, pv in ((jax_trace, jax_prov), (port_trace, port_prov)):
+            spans = tr.get_tracer().snapshot()
+            ids = {s["span_id"]: s["name"] for s in spans}
+            by_trace = {}
+            for s in spans:
+                if s["trace_id"] and s["dur_us"] is not None:
+                    by_trace.setdefault(s["trace_id"], set()).add(
+                        (s["name"], ids.get(s["parent_id"], "")))
+            for edges in by_trace.values():
+                assert {("admission", ""), ("encode", "admission"), ("submit", "admission"),
+                        ("collect", "admission"), ("drain", "admission"),
+                        ("program-ab-fused", "submit")} <= edges
+            # each rate-limit ban names a batch the ring holds
+            for r in pv.get_ledger().tail(100_000):
+                if r["source"] == "rate_limit":
+                    assert r["trace_id"] in by_trace
+            trees.append(set().union(*by_trace.values()))
+        assert trees[0] == trees[1]
+    finally:
+        port_app.shutdown()
+        jax_app.shutdown()

@@ -1,8 +1,9 @@
 """The port's config loader against the JAX schema: the deploy file loads,
 every key the JAX schema reads and the port does not is named (one
 warning, `Config.not_ported`), the service's and the pipeline's keys are
-read with the JAX defaults and checks, `pipeline_enabled: true` loads,
-and `http_workers` other than 0 is refused."""
+read with the JAX defaults and checks, and so are the kernel edge's and
+the observability plane's, `pipeline_enabled: true` loads, and
+`http_workers` other than 0 is refused."""
 
 import logging
 from pathlib import Path
@@ -31,6 +32,16 @@ PIPELINE_KEYS = (
     "pipeline_max_block_ms", "matcher_probe_seconds", "pipeline_fused", "pipeline_kafka",
     "encode_workers", "drain_resolve_depth", "pipeline_command_take_max",
 )
+# the kernel edge's and the observability plane's keys
+OBS_KEYS = (
+    "iptables_ban_seconds", "iptables_unbanner_seconds", "ipset_netlink_enabled",
+    "metrics_log_file", "profile", "trace_enabled", "trace_ring_size",
+    "trace_jax_annotations", "provenance_enabled", "provenance_ring_size", "slo_enabled",
+    "slo_sample_seconds", "slo_batch_latency_target", "slo_shed_ratio_max",
+    "slo_stale_ratio_max", "slo_breaker_open_ratio_max", "slo_budget_trip_ratio_max",
+    "flightrec_dir", "flightrec_min_interval_s", "flightrec_keep",
+    "flightrec_provenance_records",
+)
 
 
 def _jax_keys():
@@ -49,6 +60,7 @@ def test_every_jax_schema_key_is_read_or_named_not_ported():
     assert not read & port_config._NOT_PORTED_KEYS
     assert set(SERVICE_KEYS) <= read
     assert set(PIPELINE_KEYS) <= read
+    assert set(OBS_KEYS) <= read
 
 
 def test_deploy_file_names_exactly_the_keys_the_port_does_not_read(caplog):
@@ -59,9 +71,10 @@ def test_deploy_file_names_exactly_the_keys_the_port_does_not_read(caplog):
         cfg = config_from_yaml_text(text)
     assert cfg.not_ported == expected
     assert {"serve_fastpath_enabled", "server_log_file", "banning_log_file"}.isdisjoint(expected)
-    assert {"ipset_netlink_enabled", "matcher_backend", "kafka_command_topic",
-            "metrics_log_file", "iptables_unbanner_seconds"} <= set(expected)
+    assert {"matcher_backend", "kafka_command_topic", "fabric_enabled",
+            "flightrec_fleet_capture"} <= set(expected)
     assert set(PIPELINE_KEYS).isdisjoint(expected)
+    assert set(OBS_KEYS).isdisjoint(expected)
     warnings = [r.getMessage() for r in caplog.records if "not ported" in r.getMessage()]
     assert warnings == ["not ported: " + ", ".join(expected)]
 
@@ -142,3 +155,49 @@ def test_pipeline_keys_are_checked(text, match):
         config_from_yaml_text(text)
     with pytest.raises(ValueError, match=match):
         jax_schema.config_from_yaml_text(text)
+
+
+def test_obs_keys_match_the_jax_schema():
+    """The kernel edge's and the observability plane's keys: the JAX
+    defaults, the deploy file's values, and explicit values alike."""
+    text = DEPLOY.read_text()
+    jax_cfg, cfg = jax_schema.config_from_yaml_text(text), config_from_yaml_text(text)
+    empty_jax, empty = jax_schema.config_from_yaml_text(""), config_from_yaml_text("")
+    on = ("trace_enabled: true\ntrace_ring_size: 64\ntrace_jax_annotations: true\n"
+          "provenance_enabled: false\nslo_sample_seconds: 1\nflightrec_dir: /x\n"
+          "flightrec_keep: 2\nprofile: true\nipset_netlink_enabled: false\n"
+          "iptables_unbanner_seconds: 7\nslo_batch_latency_target: 0.5\n")
+    cfg_on, jax_on = config_from_yaml_text(on), jax_schema.config_from_yaml_text(on)
+    for key in OBS_KEYS:
+        assert getattr(cfg, key) == getattr(jax_cfg, key), key
+        assert getattr(empty, key) == getattr(empty_jax, key), key
+        assert getattr(cfg_on, key) == getattr(jax_on, key), key
+    assert cfg.ipset_netlink_enabled and cfg.metrics_log_file and cfg.iptables_unbanner_seconds
+    assert empty.provenance_enabled and empty.slo_enabled and not empty.trace_enabled
+
+
+@pytest.mark.parametrize("text, match", [
+    ("trace_ring_size: 0", "trace_ring_size"),
+    ("provenance_ring_size: 0", "provenance_ring_size"),
+    ("slo_batch_latency_target: 1.0", "slo_batch_latency_target"),
+    ("slo_shed_ratio_max: 0", "slo_shed_ratio_max"),
+    ("slo_stale_ratio_max: -1", "slo_stale_ratio_max"),
+    ("slo_breaker_open_ratio_max: 0", "slo_breaker_open_ratio_max"),
+    ("slo_budget_trip_ratio_max: 0", "slo_budget_trip_ratio_max"),
+    ("slo_sample_seconds: -1", "slo_sample_seconds"),
+    ("flightrec_min_interval_s: -1", "flightrec_min_interval_s"),
+    ("flightrec_keep: 0", "flightrec_keep"),
+    ("flightrec_provenance_records: 0", "flightrec_provenance_records"),
+    ("trace_enabled: 1", "trace_enabled"),
+    ("ipset_netlink_enabled: yes please", "ipset_netlink_enabled"),
+    ("metrics_log_file: 3", "metrics_log_file"),
+    ("iptables_unbanner_seconds: 1.5", "iptables_unbanner_seconds"),
+])
+def test_obs_keys_are_checked(text, match):
+    """Each bad value fails the port's load and the JAX schema's alike,
+    with the same message."""
+    with pytest.raises(ValueError, match=match) as port_err:
+        config_from_yaml_text(text)
+    with pytest.raises(ValueError, match=match) as jax_err:
+        jax_schema.config_from_yaml_text(text)
+    assert str(port_err.value) == str(jax_err.value)

@@ -50,6 +50,7 @@ from banjax_tpu.pipeline import scheduler as jax_sched_mod
 from banjax_tpu.pipeline.sizer import AdaptiveBatchSizer as JaxSizer
 from banjax_tpu.resilience import failpoints as jax_fp
 from banjax_tpu_torch import workload
+from banjax_tpu_torch import cli as port_cli
 from banjax_tpu_torch.cli import BanjaxApp, RegexStatesView, build_matcher
 from banjax_tpu_torch.config import config_from_yaml_text
 from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
@@ -61,6 +62,17 @@ from banjax_tpu_torch.resilience import failpoints as port_fp
 from tests.differential.test_tpu_matcher import CONFIG_YAML, result_key
 from tests.test_torch_app import _Counted, _wait_consumed
 from tests.test_torch_matcher import _one_torch_thread  # noqa: F401
+from tests.test_torch_obs import obs_reset  # noqa: F401
+
+
+@pytest.fixture(autouse=True)
+def _port_ipset_off(monkeypatch):
+    """The port's app creates the kernel's ipset outside standalone
+    testing; here it runs with its ipset off, as the JAX app does
+    (`init_ipset` returns None). tests/test_torch_ipset.py covers the
+    kernel edge."""
+    monkeypatch.setattr(port_cli, "init_ipset", lambda *a, **k: None)
+
 
 FIXED_NOW = 1_790_000_000.0
 

@@ -28,6 +28,7 @@ import yaml
 from banjax_tpu.pipeline import scheduler as jax_sched_mod
 from banjax_tpu.resilience import breaker as jax_breaker
 from banjax_tpu.resilience import failpoints as jax_fp
+from banjax_tpu_torch import cli as port_cli
 from banjax_tpu_torch.cli import BanjaxApp
 from banjax_tpu_torch.decisions.model import Decision
 from banjax_tpu_torch.ingest.tailer import LogTailer
@@ -37,6 +38,7 @@ from banjax_tpu_torch.resilience import breaker as port_breaker
 from banjax_tpu_torch.resilience import failpoints as port_fp
 from banjax_tpu_torch.resilience.health import HealthRegistry
 from tests.test_torch_matcher import _one_torch_thread  # noqa: F401
+from tests.test_torch_obs import obs_reset  # noqa: F401
 from tests.test_torch_pipeline import (  # noqa: F401
     FIXED_NOW,
     _disarmed,
@@ -47,6 +49,15 @@ from tests.test_torch_pipeline import (  # noqa: F401
     run_scheduler,
 )
 from tests.test_torch_serve import HOST, _config, _JaxServer, _norm, _request, loop  # noqa: F401
+
+
+@pytest.fixture(autouse=True)
+def _port_ipset_off(monkeypatch):
+    """The port's app creates the kernel's ipset outside standalone
+    testing; here it runs with its ipset off, as the JAX app does
+    (`init_ipset` returns None). tests/test_torch_ipset.py covers the
+    kernel edge."""
+    monkeypatch.setattr(port_cli, "init_ipset", lambda *a, **k: None)
 
 
 # ----------------------------------------------------------- failpoints

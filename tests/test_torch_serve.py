@@ -23,6 +23,7 @@ C's plain version. Every server binds port 0 and is stopped."""
 import asyncio
 import dataclasses
 import io
+import json
 import re
 import socket
 import threading
@@ -45,6 +46,7 @@ from banjax_tpu.httpapi import server as jax_server
 from banjax_tpu.httpapi.serve_stats import get_stats as jax_serve_stats
 from banjax_tpu.native import decisiontable as jax_table
 from banjax_tpu.resilience.health import HealthRegistry as JaxHealth
+from banjax_tpu_torch import cli as port_cli
 from banjax_tpu_torch.cli import BanjaxApp
 from banjax_tpu_torch.crypto.challenge import new_challenge_cookie_at, solve_challenge_for_testing
 from banjax_tpu_torch.crypto.session import new_session_cookie
@@ -53,6 +55,17 @@ from banjax_tpu_torch.httpapi.server import run_http_server
 from banjax_tpu_torch.native.decisiontable import DecisionTable
 from banjax_tpu_torch.utils import go_query_escape
 from tests.test_torch_matcher import _one_torch_thread  # noqa: F401
+from tests.test_torch_obs import obs_reset  # noqa: F401
+
+
+@pytest.fixture(autouse=True)
+def _port_ipset_off(monkeypatch):
+    """The port's app creates the kernel's ipset outside standalone
+    testing; here it runs with its ipset off, as the JAX app does
+    (`init_ipset` returns None). tests/test_torch_ipset.py covers the
+    kernel edge."""
+    monkeypatch.setattr(port_cli, "init_ipset", lambda *a, **k: None)
+
 
 FIXTURE = Path(__file__).resolve().parent / "fixtures" / "banjax-config-test.yaml"
 HOST = "eligible.example.net"  # in no per-site or password list: fast-path eligible
@@ -451,3 +464,136 @@ def test_dynamic_lists_and_their_mirror_match_jax(monkeypatch):
         port.close(), jax.close()
         port_table.close(), jax_t.close()
         jax_t.unlink()
+
+
+# ------------------------------------------------- the observability routes
+
+OBS_ROUTES = ("/metrics", "/debug/trace", "/decisions/explain?ip=8.8.8.8",
+              "/decisions/explain?ip=43.0.0.2", "/decisions/explain", "/debug/incidents",
+              "/traffic/top", "/traffic/top?k=x")
+
+
+def _obs_view(route, status, body):
+    """What must agree of an observability route's answer: its status and
+    body, less wall and monotonic times and thread ids."""
+    if route == "/metrics":
+        from banjax_tpu_torch.obs.exposition import parse_text_format
+
+        fams = parse_text_format(body.decode())
+        return status, {f: [(n, l, v) for n, l, v in e["samples"]]
+                        for f, e in fams.items() if e["type"] != "histogram"}
+    payload = json.loads(body)
+    if route == "/debug/trace":
+        return status, [(e["name"], e["ph"], e["args"].get("ip")) for e in payload["traceEvents"]
+                        if e["ph"] != "M"], payload["otherData"]["enabled"]
+    for r in payload.get("records", ()):
+        r.pop("t_monotonic")
+        r.pop("time_unix")
+    return status, payload
+
+
+@pytest.mark.parametrize("fast", [True, False], ids=["fast_layout", "aiohttp_layout"])
+def test_observability_routes_match_the_jax_server(tmp_path, pinned, loop, fast):
+    """/metrics, /debug/trace, /decisions/explain, /debug/incidents and
+    /traffic/top against the JAX server over the same decisions and
+    requests (through the fast server's proxy in the fast layout); then
+    the chain's failpoints answer fail-open as the JAX server's do."""
+    from banjax_tpu.obs import slo as jax_slo
+    from banjax_tpu.obs import trace as jax_trace
+    from banjax_tpu.resilience import failpoints as jax_fp
+    from banjax_tpu_torch.resilience import failpoints as port_fp
+
+    jax_cfg = _config(tmp_path / "jax.yaml", fast, False, tmp_path)
+    jax_server_ = _JaxServer(loop, jax_cfg, fast, tmp_path)
+    jax_server_.deps.slo_getter = lambda: jax_slo.SloEngine.from_config(jax_server_.deps.config_holder.get())
+    port_cfg = _config(tmp_path / "port.yaml", fast, False, tmp_path)
+    cfg = yaml.safe_load(port_cfg.read_text())
+    cfg["trace_enabled"] = True
+    port_cfg.write_text(yaml.safe_dump(cfg))
+    port_app = BanjaxApp(str(port_cfg), device="cpu")
+    jax_trace.configure(enabled=True)
+    try:
+        port_app.start_background(port=0)
+        assert port_app.tailer.opened.wait(10)
+        for ip, decision in DECISIONS:
+            for lists in (jax_server_.lists, port_app.dynamic_lists):
+                lists.update(ip, NOW + 600, decision, False, "d")
+        for _, kw, _, _ in REQUESTS:
+            assert _norm(_request(port_app.port, **kw)) == _norm(_request(jax_server_.port, **kw))
+        for route in OBS_ROUTES:
+            got = _obs_view(route, *_cold(port_app.port, "GET", route, None))
+            want = _obs_view(route, *_cold(jax_server_.port, "GET", route, None))
+            if route == "/metrics":
+                # the JAX exposition's one Kafka family (Kafka is not ported)
+                assert want[1].pop("banjax_kafka_skipped_batches_total")
+            assert got == want, route
+        explain = json.loads(_cold(port_app.port, "GET", "/decisions/explain?ip=8.8.8.8", None)[1])
+        assert explain["records"] and explain["ledger_enabled"]
+        trace = json.loads(_cold(port_app.port, "GET", "/debug/trace?clear=1", None)[1])
+        assert any(e["name"] == "challenge.sha_inv" for e in trace["traceEvents"])
+        assert json.loads(_cold(port_app.port, "GET", "/debug/trace", None)[1])["traceEvents"] == []
+
+        # the chain's failpoints: an injected fault answers fail-open (8.8.8.8
+        # is on the global challenge list, so the fast path defers to the chain)
+        kw = dict(ip="8.8.8.8", cookie=_solved("8.8.8.8"))
+        for site in ("decision_chain", "challenge.issue", "challenge.verify"):
+            answers = []
+            for fp, srv_port in ((port_fp, port_app.port), (jax_fp, jax_server_.port)):
+                fp.arm(site, "error", count=1)
+                raw = _request(srv_port, **(kw if site == "challenge.verify" else dict(ip="8.8.8.8")))
+                answers.append(re.sub(rb"X-Banjax-Error: [^\r\n]*", b"X-Banjax-Error: MASKED",
+                                      _norm(raw)))
+                fp.disarm()
+            assert answers[0] == answers[1], site
+            assert b" 500 " in answers[0].split(b"\r\n", 1)[0] and b"@fail_open" in answers[0]
+        assert port_app.serve_stats.snapshot()["fail_open_total"] == 3
+    finally:
+        port_app.stop_background()
+        jax_server_.stop()
+
+
+@pytest.mark.parametrize("route", ["/metrics", "/debug/trace", "/decisions/explain?ip=1.2.3.4",
+                                   "/debug/incidents", "/traffic/top", "/healthz"])
+def test_admin_routes_refuse_without_the_token_as_jax(tmp_path, loop, route):
+    """Off loopback with an `admin_token`, both servers answer 401 without
+    the bearer token and 200 with it (the app is bound to 127.0.0.1; only
+    the listener host the gate reads is not loopback)."""
+    cfg_path = _config(tmp_path / "tok.yaml", False, False, tmp_path)
+    cfg = yaml.safe_load(cfg_path.read_text())
+    cfg["admin_token"] = "s3cret"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    jax_srv = _JaxServer(loop, cfg_path, False, tmp_path)
+    port_app = BanjaxApp(str(cfg_path), device="cpu")
+    from banjax_tpu_torch.httpapi import server as port_server
+
+    runners = []
+
+    async def serve(app):
+        runner = web.AppRunner(app, access_log=None)
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", 0).start()
+        runners.append(runner)
+        return next(a[1] for a in runner.addresses if isinstance(a, tuple))
+
+    try:
+        ports = [_run(loop, serve(jax_server.build_app(jax_srv.deps, listen_host="192.0.2.1"))),
+                 _run(loop, serve(port_server.build_app(port_app.server_deps(),
+                                                        listen_host="192.0.2.1")))]
+        for token, want in ((None, 401), ("Bearer s3cret", 200), ("Bearer nope", 401)):
+            statuses = []
+            for p in ports:
+                head = f"GET {route} HTTP/1.1\r\nHost: x\r\nConnection: close\r\n"
+                if token:
+                    head += f"Authorization: {token}\r\n"
+                with socket.create_connection(("127.0.0.1", p), timeout=10) as sck:
+                    sck.sendall((head + "\r\n").encode())
+                    raw = b""
+                    while chunk := sck.recv(65536):
+                        raw += chunk
+                statuses.append(int(raw.split(b" ", 2)[1]))
+            assert statuses == [want, want], (route, token, statuses)
+    finally:
+        for r in runners:
+            _run(loop, r.cleanup())
+        port_app.shutdown()
+        jax_srv.stop()
