@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import hashlib
 import threading
-from typing import List, Optional, Sequence
+from typing import TYPE_CHECKING, List, Optional, Sequence
 
 from banjax_tpu_torch.challenge import stats as challenge_stats
 from banjax_tpu_torch.crypto.challenge import (
@@ -52,9 +52,12 @@ from banjax_tpu_torch.crypto.challenge import (
     parse_cookie,
     validate_expiration_and_hmac,
 )
-from banjax_tpu_torch.device import DeviceLike, resolve_device
-from banjax_tpu_torch.matcher.kernels import pow_verify
 from banjax_tpu_torch.resilience import failpoints
+
+# torch is imported by `DeviceVerifier` alone: the host check, all an HTTP
+# worker runs, needs none of it
+if TYPE_CHECKING:
+    from banjax_tpu_torch.device import DeviceLike
 
 
 def cpu_zero_bits(payload: bytes) -> int:
@@ -77,6 +80,9 @@ class DeviceVerifier:
     process."""
 
     def __init__(self, batch_max: int = 256, device: DeviceLike = None) -> None:
+        from banjax_tpu_torch.device import resolve_device
+        from banjax_tpu_torch.matcher.kernels import pow_verify
+
         if batch_max < 1:
             raise ValueError(f"batch_max must be >= 1, got {batch_max}")
         self.device = resolve_device(device)
@@ -103,6 +109,8 @@ class DeviceVerifier:
         # an armed `challenge.device_verify` fails the dispatch as a kernel
         # fault would: counted in `faults` and raised to every caller (the
         # JAX verifier falls back to hashlib here)
+        from banjax_tpu_torch.matcher.kernels import pow_verify
+
         failpoints.check("challenge.device_verify")
         if self._dispatcher is not None:
             return self._dispatcher.bits(payloads)

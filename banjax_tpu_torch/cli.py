@@ -1,7 +1,6 @@
 """Entry points of the port: `build_matcher`, `build_decision_chain` and
-the single-process service around both, `BanjaxApp` (a copy of
-`banjax_tpu/cli.py`'s, without the fabric, Kafka, fleet observability
-and multi-process workers, none of which the port has).
+the service around both, `BanjaxApp` (a copy of `banjax_tpu/cli.py`'s,
+without the fabric and fleet observability, which the port does not have).
 
 Reference behavior (Go banjax): banjax.go:66-275 — parse the three flags,
 build the shared state, start the HTTP server and the log tailer,
@@ -30,6 +29,20 @@ the 29 s line to `metrics_log_file` (`list-metrics.log` in standalone
 testing). The kernel edge's and the serving path's counters are the
 app's own. Pass `device="cpu"` to `BanjaxApp` to run the plain PyTorch
 versions on the host, as the tests do.
+
+The Kafka channel (`ingest/kafka_io.py`): unless `disable_kafka`, the app
+runs the command reader (into the pipeline's command lane when
+`pipeline_enabled` and `pipeline_kafka` are set, else inline), the report
+writer (unless `disable_kafka_writer`) and the 19 s `status` heartbeat,
+with health components `kafka-reader` and `kafka-writer`.
+
+Multi-process serving (`httpapi/workers.py`): `http_workers` N > 0 (-1:
+one per extra core; below -1 a warning and single-process serving) puts
+the failed-challenge state and the decision table in named shared
+memory, replicates the dynamic lists to the workers, and has a
+`PrimarySupervisor` start N `SO_REUSEPORT` worker processes on the port
+the primary bound. A table that cannot be created raises (the JAX app
+falls back to single-process serving, or to the chain).
 """
 
 from __future__ import annotations
@@ -38,16 +51,34 @@ import argparse
 import asyncio
 import gc
 import logging
+import os
 import signal
 import sys
 import threading
 import time
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
-from banjax_tpu_torch.device import DeviceLike
 from banjax_tpu_torch.effectors.ipset import init_ipset
 
+if TYPE_CHECKING:
+    from banjax_tpu_torch.device import DeviceLike
+
 log = logging.getLogger(__name__)
+
+KAFKA_STATUS_INTERVAL_SECONDS = 19  # banjax.go:204
+
+
+def http_worker_count(configured: int) -> int:
+    """The number of worker processes `http_workers` asks for: -1 is one
+    per core past the first, below -1 warns and serves single-process
+    (`banjax_tpu/cli.py:128-137`)."""
+    if configured == -1:
+        return max(0, (os.cpu_count() or 1) - 1)
+    if configured < -1:
+        log.warning("http_workers=%d is out of range (only -1 means auto); "
+                    "serving single-process", configured)
+        return 0
+    return configured
 
 
 def build_matcher(config, banner, static_lists, device: DeviceLike = None, health=None):
@@ -90,7 +121,7 @@ def build_decision_chain(config, banner, static_lists, device: DeviceLike = None
     )
 
 
-class _NoStates:
+class NoStates:
     """The window states before the first matcher is built (no line read yet)."""
 
     def format_states(self) -> str:
@@ -112,7 +143,7 @@ class RegexStatesView:
     def _target(self):
         m = self._app._matcher
         dw = m.device_windows if m is not None else None
-        return dw if dw is not None else _NoStates()
+        return dw if dw is not None else NoStates()
 
     def format_states(self) -> str:
         return self._target().format_states()
@@ -157,17 +188,30 @@ class BanjaxApp:
         provenance.configure(enabled=config.provenance_enabled,
                              ring_size=config.provenance_ring_size)
         self.static_lists = StaticDecisionLists(config)
-        self.dynamic_lists = DynamicDecisionLists()
+        # multi-process serving: the workers' replicas follow these lists
+        # through the supervisor's broadcast
+        self._supervisor = None
+        self._n_http_workers = http_worker_count(config.http_workers)
+        if self._n_http_workers > 0:
+            from banjax_tpu_torch.httpapi.workers import ReplicatedDynamicLists
+
+            self.dynamic_lists = ReplicatedDynamicLists()
+        else:
+            self.dynamic_lists = DynamicDecisionLists()
         self.serve_stats = ServeFastpathStats()
 
         # the serving fast path: the dynamic lists mirror every insert and
-        # expiry into the table. A table that cannot be built raises here
-        # (the JAX app logs and serves through the chain)
+        # expiry into the table, a named segment the workers attach when
+        # there are workers. A table that cannot be built raises here (the
+        # JAX app logs and serves through the chain)
         self.decision_table = None
         if config.serve_fastpath_enabled:
-            from banjax_tpu_torch.native.decisiontable import create_decision_table
+            from banjax_tpu_torch.native import decisiontable
 
-            self.decision_table = create_decision_table(config.serve_decision_table_capacity)
+            cap = config.serve_decision_table_capacity
+            self.decision_table = (decisiontable.ShmDecisionTable(capacity=cap)
+                                   if self._n_http_workers > 0
+                                   else decisiontable.create_decision_table(cap))
             self.dynamic_lists.set_mirror(self.decision_table, self.serve_stats)
 
         # ban log files (banjax.go:124-138)
@@ -194,6 +238,13 @@ class BanjaxApp:
         self.protected_paths = chain.protected_paths
         self.failed_challenge_states = chain.failed_challenge_states
         self.challenge_verifier = chain.challenge_verifier
+        if self._n_http_workers > 0:
+            # the one state the hot path writes, shared by every process
+            # (raises when the native table cannot be built; the JAX app
+            # falls back to single-process serving)
+            from banjax_tpu_torch.native.shm import ShmFailedChallengeStates
+
+            self.failed_challenge_states = ShmFailedChallengeStates()
 
         self._matcher = None
         self._matcher_generation = -1
@@ -252,7 +303,10 @@ class BanjaxApp:
             pipeline_getter=lambda: self.pipeline,
             serve_stats=self.serve_stats,
             ipset_stats=self.ipset_stats,
+            supervisor_getter=lambda: self._supervisor,
         )
+        self.kafka_reader = None
+        self.kafka_writer = None
 
         gin_log_name = "gin.log" if config.standalone_testing else config.gin_log_file
         self._gin_log_file = None
@@ -270,6 +324,7 @@ class BanjaxApp:
         self._server_thread: Optional[threading.Thread] = None
         self._started = threading.Event()
         self._serve_error: Optional[BaseException] = None
+        self._stop_event = threading.Event()
 
     # --- the SIGHUP body (banjax.go:101-117) ---
     def reload(self) -> None:
@@ -292,6 +347,8 @@ class BanjaxApp:
             if new_config.failpoints:
                 failpoints.arm_from_spec(new_config.failpoints)
             self._failpoints_spec = new_config.failpoints
+        if self._supervisor is not None:
+            self._supervisor.broadcast_reload()
 
     def render_metrics_text(self) -> str:
         """The whole /metrics text, as the route serves it (incident
@@ -302,7 +359,7 @@ class BanjaxApp:
             self.dynamic_lists, RegexStatesView(self), self.failed_challenge_states,
             matcher=self._matcher, pipeline=self.pipeline, health=self.health,
             slo=self.slo, flightrec=self.flightrec, serve_stats=self.serve_stats,
-            ipset_stats=self.ipset_stats,
+            ipset_stats=self.ipset_stats, supervisor=self._supervisor,
         )
 
     def _traffic_snapshot(self):
@@ -361,13 +418,43 @@ class BanjaxApp:
 
     def start_workers(self) -> None:
         """Start the pipeline's stage threads, if on, the SLO sampler, the
-        tailer and the metrics reporter (not the HTTP server)."""
+        tailer, the Kafka reader and writer, the metrics reporter and the
+        Kafka status heartbeat (not the HTTP server)."""
+        from banjax_tpu_torch.ingest.kafka_io import KafkaReader, KafkaWriter
+
+        config = self.config_holder.get()
         if self.pipeline is not None:
             self.pipeline.start()
         if self.slo is not None:
-            self.slo.start(self.config_holder.get().slo_sample_seconds)
+            self.slo.start(config.slo_sample_seconds)
         self.tailer.start()
+        # commands share the pipeline's admission buffer when it runs
+        kafka_pipeline = self.pipeline if config.pipeline_kafka else None
+        if config.disable_kafka:
+            log.info("INIT: not running Kafka reader/writer due to disable_kafka")
+        else:
+            log.info("INIT: starting Kafka reader%s", " only due to disable_kafka_writer"
+                     if config.disable_kafka_writer else "/writer")
+            self.kafka_reader = KafkaReader(
+                self.config_holder, self.dynamic_lists,
+                health=self.health.register("kafka-reader"), pipeline=kafka_pipeline,
+            )
+            self.kafka_reader.start()
+            if not config.disable_kafka_writer:
+                self.kafka_writer = KafkaWriter(
+                    self.config_holder, health=self.health.register("kafka-writer"))
+                self.kafka_writer.start()
         self.metrics.start()
+        if not config.disable_kafka:
+            threading.Thread(target=self._heartbeat, name="kafka-status", daemon=True).start()
+
+    def _heartbeat(self) -> None:
+        from banjax_tpu_torch.ingest.reports import report_status_message
+
+        while not self._stop_event.wait(KAFKA_STATUS_INTERVAL_SECONDS):
+            cfg = self.config_holder.get()
+            if not cfg.disable_kafka:
+                report_status_message(cfg)
 
     def server_deps(self):
         from banjax_tpu_torch.httpapi.server import ServerDeps
@@ -391,13 +478,31 @@ class BanjaxApp:
             slo_getter=lambda: self.slo,
             flightrec_getter=lambda: self.flightrec,
             ipset_stats=self.ipset_stats,
+            supervisor_getter=lambda: self._supervisor,
         )
 
     async def _serve(self, install_signal_handlers: bool, port: int) -> None:
         from banjax_tpu_torch.httpapi.server import run_http_server
 
         try:
-            handle = await run_http_server(self.server_deps(), port=port)
+            if self._n_http_workers > 0:
+                import tempfile
+
+                from banjax_tpu_torch.httpapi.workers import PrimarySupervisor
+
+                self._supervisor = PrimarySupervisor(
+                    self, tempfile.mkdtemp(prefix="banjax-ctrl-"), self._n_http_workers,
+                    health=self.health.register("worker-supervisor"),
+                )
+                self.dynamic_lists.set_broadcast(self._supervisor.control.broadcast)
+                handle = await run_http_server(
+                    self.server_deps(), port=port, reuse_port=True,
+                    unix_path=self._supervisor.primary_http_sock(),
+                )
+                # the workers bind the port the primary bound
+                self._supervisor.spawn_workers(handle.port)
+            else:
+                handle = await run_http_server(self.server_deps(), port=port)
         except BaseException as e:
             self._serve_error = e
             self._started.set()
@@ -457,16 +562,26 @@ class BanjaxApp:
         self.shutdown()
 
     def shutdown(self) -> None:
-        """Stop the workers and release what the app holds, in the JAX order:
-        the tailer first (no new lines), the pipeline (it drains what was
-        admitted, then its threads stop), then the lists' sweeper, the
-        decision table, the matcher, the kernel edge's writer (it drains
-        its queue) and the files. The SLO sampler and the metrics reporter
-        stop after the pipeline; the flight recorder is uninstalled, so a
-        later app in the same process starts clean."""
+        """Stop the workers and release what the app holds, in the JAX order
+        but for Kafka: the HTTP worker processes, the tailer and the Kafka
+        loops (no new lines or commands; JAX stops Kafka last), the
+        pipeline (it drains what was admitted, then its threads stop), then
+        the lists' sweeper, the failed-challenge table and the decision
+        table (a named segment is unlinked), the matcher, the kernel edge's
+        writer (it drains its queue) and the files. The SLO sampler and the
+        metrics reporter stop after the pipeline; the flight recorder is
+        uninstalled, so a later app in the same process starts clean."""
         from banjax_tpu_torch.obs import flightrec
 
+        self._stop_event.set()
+        if self._supervisor is not None:
+            self._supervisor.stop()
+            self._supervisor = None
         tailer_stopped = self.tailer.stop()
+        # the Kafka reader admits commands into the pipeline: it stops first too
+        for loop in (self.kafka_reader, self.kafka_writer):
+            if loop is not None:
+                loop.stop()
         if self.pipeline is not None and tailer_stopped:
             self.pipeline.flush()
             tailer_stopped = self.pipeline.stop()
@@ -476,11 +591,19 @@ class BanjaxApp:
             flightrec.install(None)
         self.metrics.stop()
         self.dynamic_lists.close()
+        # the shared tables go only after the metrics loop stopped (it
+        # reads them); the segments are unlinked by their creator
+        fc = self.failed_challenge_states
+        if hasattr(fc, "unlink"):
+            fc.close()
+            fc.unlink()
         dt = self.decision_table
         if dt is not None:
             self.dynamic_lists.set_mirror(None)
             self.decision_table = None
             dt.close()
+            if hasattr(dt, "unlink"):
+                dt.unlink()
         if not tailer_stopped:
             # a batch still runs on the matcher: leave it to the process's end
             log.warning("log tailer or pipeline did not stop; the matcher is left open")

@@ -19,15 +19,20 @@ pipeline (`pipeline/`) and the breaker and failpoints it drives, the
 `iptables_unbanner_seconds` (read and used nowhere, as in JAX: the
 kernel's per-entry timeouts expire bans); for the observability plane
 (`obs/`) the `trace_*`, `provenance_*`, `slo_*` and `flightrec_*` keys,
-`metrics_log_file` and `profile`; all with the JAX defaults and checks.
+`metrics_log_file` and `profile`; for the Kafka channel (`ingest/kafka_*.py`)
+the `kafka_*` keys, `disable_kafka_writer`, `dnet`, `dnet_to_partition` and
+the command TTLs (`block_ip_ttl_seconds`, `block_session_ttl_seconds` and
+their per-site maps); for multi-process serving (`httpapi/workers.py`)
+`http_workers`; all with the JAX defaults and checks.
 
 A key the JAX schema reads and the port does not (the modules it
 configures are not ported yet) is named in one warning per load and
 kept in `Config.not_ported`; it is never dropped without a word, and
 never refused, so the deploy file still loads. Keys neither schema
-knows are ignored, as the full schema ignores them. Two keys select
-paths the port does not have and fail the load: a `matcher_mesh_devices`
-above 0, and an `http_workers` other than 0 (multi-process serving).
+knows are ignored, as the full schema ignores them. One key selects a
+path the port does not have and fails the load: a `matcher_mesh_devices`
+above 0. `http_workers` loads as in JAX: -1 is one worker per extra core,
+and the app serves single-process, with a warning, below -1.
 `load_pages` embeds the two challenge pages as `ConfigHolder` does.
 
 `RegexWithRate.from_yaml_dict` is a copy of the schema's: RE2-dialect
@@ -127,6 +132,26 @@ class Config:
     hostname: str = ""  # not a YAML key: the serving process sets it
     hmac_secret: str = ""
     disable_kafka: bool = False
+    # --- the Kafka channel (commands in, reports out)
+    disable_kafka_writer: bool = False
+    kafka_security_protocol: str = ""
+    kafka_ssl_ca: str = ""
+    kafka_ssl_cert: str = ""
+    kafka_ssl_key: str = ""
+    kafka_ssl_key_password: str = ""
+    kafka_command_topic: str = ""
+    kafka_report_topic: str = ""
+    kafka_min_bytes: int = 0
+    kafka_max_bytes: int = 0
+    kafka_max_wait_ms: int = 0
+    kafka_dialer_timeout_seconds: int = 0
+    kafka_dialer_keep_alive_seconds: int = 0
+    dnet: str = ""
+    dnet_to_partition: Dict[str, int] = dataclasses.field(default_factory=dict)
+    block_ip_ttl_seconds: int = 0
+    block_session_ttl_seconds: int = 0
+    sites_to_block_ip_ttl_seconds: Dict[str, int] = dataclasses.field(default_factory=dict)
+    sites_to_block_session_ttl_seconds: Dict[str, int] = dataclasses.field(default_factory=dict)
     sitewide_sha_inv_list: Dict[str, str] = dataclasses.field(default_factory=dict)
     per_site_user_agent_decision_lists: Dict[str, Dict[str, List[str]]] = dataclasses.field(
         default_factory=dict
@@ -188,7 +213,7 @@ class Config:
     pipeline_max_block_ms: float = 250.0
     matcher_probe_seconds: float = 0.0
     pipeline_fused: bool = True
-    pipeline_kafka: bool = True  # read and checked; the Kafka reader is not ported
+    pipeline_kafka: bool = True
     encode_workers: int = -1
     drain_resolve_depth: int = 2
     pipeline_command_take_max: int = 1024
@@ -249,6 +274,22 @@ _SCALAR_KEYS = {
     "iptables_ban_seconds": int,
     "hmac_secret": str,
     "disable_kafka": bool,
+    "disable_kafka_writer": bool,
+    "kafka_security_protocol": str,
+    "kafka_ssl_ca": str,
+    "kafka_ssl_cert": str,
+    "kafka_ssl_key": str,
+    "kafka_ssl_key_password": str,
+    "kafka_command_topic": str,
+    "kafka_report_topic": str,
+    "kafka_min_bytes": int,
+    "kafka_max_bytes": int,
+    "kafka_max_wait_ms": int,
+    "kafka_dialer_timeout_seconds": int,
+    "kafka_dialer_keep_alive_seconds": int,
+    "dnet": str,
+    "block_ip_ttl_seconds": int,
+    "block_session_ttl_seconds": int,
     "too_many_failed_challenges_interval_seconds": int,
     "too_many_failed_challenges_threshold": int,
     "password_cookie_ttl_seconds": int,
@@ -320,7 +361,8 @@ _DICT_KEYS = (
     "password_protected_paths", "password_protected_path_exceptions",
     "password_hash_roaming", "password_persite_cookie_ttl_seconds",
     "use_user_agent_in_cookie", "sites_to_disable_baskerville",
-    "sha_inv_path_exceptions",
+    "sha_inv_path_exceptions", "dnet_to_partition", "sites_to_block_ip_ttl_seconds",
+    "sites_to_block_session_ttl_seconds",
 )
 
 # keys the port reads besides the two tables above
@@ -332,8 +374,6 @@ _OTHER_KEYS = (
 # the rest of the JAX schema's keys (`banjax_tpu/config/schema.py:504-577`):
 # read there, not here, until their modules are ported
 _NOT_PORTED_KEYS = frozenset((
-    "block_ip_ttl_seconds", "block_session_ttl_seconds",
-    "disable_kafka_writer", "dnet", "dnet_to_partition",
     "fabric_enabled", "fabric_frame_max_bytes",
     "fabric_gossip_interval_ms", "fabric_graceful_leave_ms", "fabric_indirect_probes",
     "fabric_inflight_frames", "fabric_listen", "fabric_node_id", "fabric_peers",
@@ -341,12 +381,7 @@ _NOT_PORTED_KEYS = frozenset((
     "fabric_suspect_timeout_ms", "fabric_takeover_grace_ms",
     "fabric_trace_propagation", "fabric_vnodes", "fabric_wire_v2",
     "fleet_metrics_enabled", "fleet_scrape_timeout_ms",
-    "flightrec_fleet_capture", "kafka_command_topic",
-    "kafka_dialer_keep_alive_seconds", "kafka_dialer_timeout_seconds",
-    "kafka_max_bytes", "kafka_max_wait_ms", "kafka_min_bytes", "kafka_report_topic",
-    "kafka_security_protocol", "kafka_ssl_ca", "kafka_ssl_cert", "kafka_ssl_key",
-    "kafka_ssl_key_password", "matcher_backend", "matcher_mesh_rp",
-    "sites_to_block_ip_ttl_seconds", "sites_to_block_session_ttl_seconds",
+    "flightrec_fleet_capture", "matcher_backend", "matcher_mesh_rp",
 ))
 
 _PAGES_DIR = Path(__file__).resolve().parent / "httpapi" / "pages"
@@ -417,11 +452,6 @@ def config_from_yaml_text(text: str, standalone_testing_default: bool = False) -
                 "config key matcher_mesh_devices: the multi-device mesh is not "
                 "ported; set matcher_mesh_devices: 0"
             )
-    if cfg.http_workers != 0:
-        raise ValueError(
-            "config key http_workers: multi-process serving is not ported; "
-            f"set http_workers: 0, got {cfg.http_workers}"
-        )
     if not 1 <= cfg.traffic_sketch_depth <= 8:
         raise ValueError(
             f"config key traffic_sketch_depth: expected 1..8, got {cfg.traffic_sketch_depth}"

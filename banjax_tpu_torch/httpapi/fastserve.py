@@ -9,7 +9,8 @@ aiohttp app.
 
 Routes served natively: /auth_request (the nginx subrequest), /info,
 /healthz and /favicon.ico (standalone). Every other route is raw-proxied
-over a unix socket to the full aiohttp application (`httpapi/server.py`),
+over a unix socket to the full aiohttp application (`httpapi/server.py`;
+the primary's, in a multi-process worker, which also proxies /healthz),
 so the whole API stays reachable on one TCP listener. A hot request is
 answered inline in `data_received`; the first proxied request turns the
 connection into task mode, which keeps the requests' order.
@@ -585,9 +586,12 @@ class FastPathServer:
 
 
 async def start_fast_server(deps, proxy_sock: str, host: str, port: int,
+                            reuse_port: bool = False,
                             coalesced_gin=None, coalesced_server=None):
-    """Bind the fast-path protocol server; returns the asyncio Server."""
+    """Bind the fast-path protocol server; returns the asyncio Server.
+    `reuse_port` sets SO_REUSEPORT (multi-process serving)."""
     fps = FastPathServer(deps, proxy_sock, coalesced_gin, coalesced_server,
                          listen_host=host)
     loop = asyncio.get_running_loop()
-    return await loop.create_server(lambda: FastHttpProtocol(fps), host, port)
+    return await loop.create_server(lambda: FastHttpProtocol(fps), host, port,
+                                    reuse_port=reuse_port or None)

@@ -41,7 +41,11 @@ With `profile: true` (gin's pprof in the reference, http_server.go:
 
 In the fast layout every route but /auth_request, /info and /healthz
 reaches this app through the fast server's raw proxy, as cold routes.
-Single process only (multi-process workers are not ported); `/metrics`
+Multi-process serving (`httpapi/workers.py`): every process binds the
+TCP port with SO_REUSEPORT; the primary also serves this app on a unix
+socket, and a worker serves only the hot routes, reaching the primary
+for the cold ones (its fast server's raw proxy, or the aiohttp reverse
+proxy of `install_proxy_routes` without the fast path). `/metrics`
 has no `?fleet=1` and `/decisions/explain` no cross-shard proxy (the
 fabric is not ported). `run_http_server` takes the port (the reference's
 8081 by default) so that a test binds port 0. The recovery middleware
@@ -132,6 +136,8 @@ class ServerDeps:
     slo_getter: Optional[Callable[[], object]] = None
     flightrec_getter: Optional[Callable[[], object]] = None
     ipset_stats: Optional[IpsetStats] = None
+    # multi-process serving: the primary's PrimarySupervisor (or None)
+    supervisor_getter: Optional[Callable[[], object]] = None
 
 
 _STANDALONE_KEY = "banjax_standalone_hdrs"
@@ -220,9 +226,12 @@ def _to_web_response(resp: Response) -> web.Response:
     return out
 
 
-def build_app(deps: ServerDeps, listen_host: str = LISTEN_HOST) -> web.Application:
-    """Build the aiohttp application (single process: every route is a
-    local handler)."""
+def build_app(deps: ServerDeps, listen_host: str = LISTEN_HOST,
+              worker_proxy_sock: Optional[str] = None) -> web.Application:
+    """Build the aiohttp application. With `worker_proxy_sock` (a worker
+    of multi-process serving) the primary-owned cold routes are reverse
+    proxies to the primary's unix socket instead of local handlers: a
+    worker's replicas are authoritative only for /auth_request."""
     middlewares = []
 
     config0 = deps.config_holder.get()
@@ -528,6 +537,7 @@ def build_app(deps: ServerDeps, listen_host: str = LISTEN_HOST) -> web.Applicati
             flightrec=deps.flightrec_getter() if deps.flightrec_getter else None,
             serve_stats=deps.serve_stats,
             ipset_stats=deps.ipset_stats,
+            supervisor=deps.supervisor_getter() if deps.supervisor_getter else None,
         )
         return web.Response(text=text, content_type="text/plain", charset="utf-8",
                             headers={"X-Prometheus-Exposition-Version": "0.0.4"})
@@ -702,20 +712,25 @@ def build_app(deps: ServerDeps, listen_host: str = LISTEN_HOST) -> web.Applicati
 
     app.router.add_route("*", "/auth_request", auth_request)
     app.router.add_get("/info", info)
-    app.router.add_get("/healthz", healthz)
-    app.router.add_get("/metrics", metrics_route)
-    app.router.add_get("/debug/trace", debug_trace_route)
-    app.router.add_get("/decisions/explain", decisions_explain_route)
-    app.router.add_get("/debug/incidents", debug_incidents_route)
-    app.router.add_get("/traffic/top", traffic_top_route)
-    app.router.add_get("/debug/failpoints", debug_failpoints_route)
-    app.router.add_post("/debug/failpoints", debug_failpoints_route)
-    app.router.add_get("/decision_lists", decision_lists_route)
-    app.router.add_get("/rate_limit_states", rate_limit_states_route)
-    app.router.add_get("/is_banned", is_banned)
-    app.router.add_get("/ipset/list", ipset_list_route)
-    app.router.add_get("/banned", banned_route)
-    app.router.add_post("/unban", unban)
+    if worker_proxy_sock is None:
+        app.router.add_get("/healthz", healthz)
+        app.router.add_get("/metrics", metrics_route)
+        app.router.add_get("/debug/trace", debug_trace_route)
+        app.router.add_get("/decisions/explain", decisions_explain_route)
+        app.router.add_get("/debug/incidents", debug_incidents_route)
+        app.router.add_get("/traffic/top", traffic_top_route)
+        app.router.add_get("/debug/failpoints", debug_failpoints_route)
+        app.router.add_post("/debug/failpoints", debug_failpoints_route)
+        app.router.add_get("/decision_lists", decision_lists_route)
+        app.router.add_get("/rate_limit_states", rate_limit_states_route)
+        app.router.add_get("/is_banned", is_banned)
+        app.router.add_get("/ipset/list", ipset_list_route)
+        app.router.add_get("/banned", banned_route)
+        app.router.add_post("/unban", unban)
+    else:
+        from banjax_tpu_torch.httpapi.workers import install_proxy_routes
+
+        install_proxy_routes(app, worker_proxy_sock)
 
     if config0.standalone_testing:
         async def favicon(request: web.Request) -> web.Response:
@@ -836,7 +851,9 @@ class ServerHandle:
             shutil.rmtree(self._tmpdir, ignore_errors=True)
 
 
-async def run_http_server(deps: ServerDeps, port: int = LISTEN_PORT) -> ServerHandle:
+async def run_http_server(deps: ServerDeps, port: int = LISTEN_PORT,
+                          reuse_port: bool = False, unix_path: Optional[str] = None,
+                          worker_proxy_sock: Optional[str] = None) -> ServerHandle:
     """Start the server; returns a handle for a clean shutdown. `port` 0
     binds an ephemeral port (tests), read back as `handle.port`.
 
@@ -844,8 +861,15 @@ async def run_http_server(deps: ServerDeps, port: int = LISTEN_PORT) -> ServerHa
 
       fast on  — the native protocol server (httpapi/fastserve.py) owns the
         TCP port and answers the hot routes; the full aiohttp app listens
-        on a unix socket and receives everything else by raw proxy.
+        on a unix socket and receives everything else by raw proxy. A
+        worker passes `worker_proxy_sock` (the primary's unix socket) and
+        runs no aiohttp app of its own.
       fast off — the aiohttp app serves the TCP port directly.
+
+    Multi-process serving (httpapi/workers.py): every process passes
+    `reuse_port=True` so the kernel spreads the port's connections over
+    them; the primary also passes `unix_path`, its cold-route listener for
+    the workers' proxies.
     """
     from banjax_tpu_torch.httpapi.fastserve import start_fast_server
 
@@ -863,10 +887,12 @@ async def run_http_server(deps: ServerDeps, port: int = LISTEN_PORT) -> ServerHa
         )
 
     if not config0.http_fast_path:
-        app = build_app(deps, listen_host=listen_host)
+        app = build_app(deps, listen_host=listen_host, worker_proxy_sock=worker_proxy_sock)
         runner = web.AppRunner(app, access_log=None)
         await runner.setup()
-        await web.TCPSite(runner, listen_host, port).start()
+        await web.TCPSite(runner, listen_host, port, reuse_port=reuse_port or None).start()
+        if unix_path is not None:
+            await web.UnixSite(runner, unix_path).start()
         bound = next(a[1] for a in runner.addresses if isinstance(a, tuple))
         log.info("http server listening on %s:%s", listen_host, bound)
         return ServerHandle(bound, runner=runner)
@@ -878,17 +904,29 @@ async def run_http_server(deps: ServerDeps, port: int = LISTEN_PORT) -> ServerHa
         else None
     )
     fast_logs = [lg for lg in (gin_log, server_log) if lg is not None]
+    if worker_proxy_sock is not None:
+        # a worker: the fast server is the whole process surface; the cold
+        # routes raw-proxy to the primary's unix socket
+        fast_server = await start_fast_server(
+            deps, worker_proxy_sock, listen_host, port, reuse_port=True,
+            coalesced_gin=gin_log, coalesced_server=server_log,
+        )
+        bound = fast_server.sockets[0].getsockname()[1]
+        log.info("fast http worker listening on %s:%s", listen_host, bound)
+        return ServerHandle(bound, fast_server=fast_server, fast_logs=fast_logs)
     # the full aiohttp app on a unix socket (the fast server's cold-route
-    # upstream), the fast server on the TCP port
-    tmpdir = tempfile.mkdtemp(prefix="banjax-http-")
-    unix_path = os.path.join(tmpdir, "app.sock")
+    # upstream, and the workers' proxy target), the fast server on the TCP port
+    tmpdir = None
+    if unix_path is None:
+        tmpdir = tempfile.mkdtemp(prefix="banjax-http-")
+        unix_path = os.path.join(tmpdir, "app.sock")
     app = build_app(deps, listen_host=listen_host)
     runner = web.AppRunner(app, access_log=None)
     await runner.setup()
     await web.UnixSite(runner, unix_path).start()
     fast_server = await start_fast_server(
-        deps, unix_path, listen_host, port, coalesced_gin=gin_log,
-        coalesced_server=server_log,
+        deps, unix_path, listen_host, port, reuse_port=reuse_port,
+        coalesced_gin=gin_log, coalesced_server=server_log,
     )
     bound = fast_server.sockets[0].getsockname()[1]
     log.info("fast http server on %s:%s (aiohttp upstream %s)", listen_host, bound, unix_path)

@@ -1,1 +1,3 @@
-"""Challenge-outcome reports (the queue; no Kafka client yet)."""
+"""Ingest: the log tailer, challenge-outcome reports (the queue), the Kafka
+command reader and report writer (`kafka_io`), and the broker wire client
+(`kafka_wire`)."""

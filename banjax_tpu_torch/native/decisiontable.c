@@ -1,8 +1,8 @@
 /* Shared-memory decision table: the compiled /auth_request fast path.
  *
  * A copy of banjax_tpu/native/decisiontable.c. The port maps it in one
- * shared anonymous mapping of a single serving process (multi-process
- * serving, where workers attach a named segment, is not ported).
+ * shared anonymous mapping of a single serving process, or in a named
+ * segment that the workers of multi-process serving attach.
  *
  * A shm-resident, open-addressed table of already-decided IPs — the
  * kernel-adjacent twin of the reference escalating decided IPs out of

@@ -8,12 +8,16 @@ lists mirror every insert, expiry and removal into it
 (`decisions/dynamic_lists.py` `set_mirror`), and `/auth_request` answers
 a hit from it without the decision chain (`httpapi/fastpath.py`).
 
-The table lives in one shared anonymous mapping of the serving process,
-as the warm tier does (`native/shm.py`): single-process serving only; the
-named segment that multi-process workers attach is not ported. The C
+A single serving process keeps the table in one shared anonymous mapping
+(`DecisionTable`, `create_decision_table`), as the warm tier does
+(`native/shm.py`). Multi-process serving (`httpapi/workers.py`) puts it
+in a named POSIX shared-memory segment (`ShmDecisionTable`): the primary
+creates it and mirrors the dynamic lists into it, each worker attaches
+it by name and only reads it. Only the creator unlinks the segment; an
+attaching process unregisters it from its `resource_tracker`. The C
 library is built with `cc` at first use into `build/native/`. If it
-cannot be built or the table cannot be mapped, creation raises: the port
-has no Python table to fall back on.
+cannot be built or the table cannot be created or attached, creation
+raises: the port has no Python table to fall back on.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import ctypes
 import mmap
 import threading
 import time
+from multiprocessing import shared_memory
 from typing import Optional, Tuple
 
 import numpy as np
@@ -37,6 +42,7 @@ _dp = ctypes.POINTER(ctypes.c_double)
 
 DECISIONTABLE = HostLibrary("decisiontable", "decisiontable.c", {
     "dt_init": (_I64, (_VP, _I64)),
+    "dt_check": (_I64, (_VP,)),
     "dt_put": (_I32, (_VP, ctypes.c_char_p, _I32, _I32, _I32, ctypes.c_uint32,
                       ctypes.c_double, ctypes.c_double)),
     "dt_get": (_I32, (_VP, ctypes.c_char_p, _I32, _u8p, _u8p, _u32p, _dp)),
@@ -47,6 +53,9 @@ DECISIONTABLE = HostLibrary("decisiontable", "decisiontable.c", {
     "dt_session_add": (_I64, (_VP, _I64)),
     "dt_session_count": (_I64, (_VP,)),
     "dt_site_hash": (ctypes.c_uint32, (ctypes.c_char_p, _I32)),
+    "dt_set_steal_ns": (None, (_I64,)),
+    "dt_test_wedge_slot": (None, (_VP, ctypes.c_char_p, _I32)),
+    "dt_test_unwedge_slot": (None, (_VP, ctypes.c_char_p, _I32)),
 })
 
 KEY_MAX = 64
@@ -157,6 +166,78 @@ class DecisionTable:
         self._base = None
         self._view = None
         self._mm.close()
+
+
+class ShmDecisionTable(DecisionTable):
+    """The native table over a named POSIX shared-memory segment:
+    `name=None` creates it (the primary), a name attaches it (a worker)."""
+
+    def __init__(self, name: Optional[str] = None, capacity: int = 65536):
+        from banjax_tpu_torch.native.shm import unregister_from_tracker
+
+        self._lib = DECISIONTABLE.lib()
+        self._out = threading.local()
+        self.capacity = _round_pow2(capacity)
+        self._view = None
+        if name is None:
+            self.nbytes = HEADER_BYTES + self.capacity * SLOT_BYTES
+            self._shm = shared_memory.SharedMemory(create=True, size=self.nbytes)
+            self.owner = True
+            self._map_base()
+            if self._lib.dt_init(self._base, self.capacity) < 0:
+                self.close()
+                self.unlink()
+                raise ValueError(f"capacity {self.capacity} is not a power of two")
+        else:
+            self._shm = shared_memory.SharedMemory(name=name)
+            self.owner = False
+            unregister_from_tracker(self._shm)
+            self._map_base()
+            cap = self._lib.dt_check(self._base)
+            if cap < 0:
+                self.close()
+                raise RuntimeError(f"shm segment {name} is not a decision table")
+            self.capacity = int(cap)
+            self.nbytes = HEADER_BYTES + self.capacity * SLOT_BYTES
+
+    @property
+    def name(self) -> str:
+        return self._shm.name
+
+    def _map_base(self) -> None:
+        # the raw address of the mapping; the transient export is dropped
+        # at once so that close() can release the mapping
+        tmp = (ctypes.c_char * 1).from_buffer(self._shm.buf)
+        self._base = ctypes.c_void_p(ctypes.addressof(tmp))
+        del tmp
+
+    # --- fault-test hooks ---
+
+    def set_steal_ns(self, ns: int) -> None:
+        """Lower the writer-lock steal bound (process-wide; tests)."""
+        self._lib.dt_set_steal_ns(ns)
+
+    def _test_wedge(self, ip: str) -> None:
+        key = _key(ip)
+        self._lib.dt_test_wedge_slot(self._base, key, len(key))
+
+    def _test_unwedge(self, ip: str) -> None:
+        key = _key(ip)
+        self._lib.dt_test_unwedge_slot(self._base, key, len(key))
+
+    def close(self) -> None:
+        """Unmap this process's view; later calls read as a closed table."""
+        if self._base is None:
+            return
+        self._base = None
+        self._shm.close()
+
+    def unlink(self) -> None:
+        if self.owner:
+            try:
+                self._shm.unlink()
+            except FileNotFoundError:
+                pass
 
 
 def create_decision_table(capacity: int = 65536) -> DecisionTable:

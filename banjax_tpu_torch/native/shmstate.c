@@ -1,17 +1,139 @@
-/* shmstate.c — the warm tier of the device-windows state (the port's copy
- * of the wt_* table of banjax_tpu/native/shmstate.c, with the key hash it
- * uses; the failed-challenge fc_* table is not part of the port, whose
- * challenge/failures.py keeps that state).
+/* shmstate.c — the port's copy of banjax_tpu/native/shmstate.c: the
+ * shared-memory failed-challenge table (fc_*) and the warm tier of the
+ * device-windows state (wt_*).
  *
- * The table lives in memory the caller maps (banjax_tpu_torch/native/
- * shm.py); the C side only reads and writes records in it.  Pure C ABI
- * (no Python.h), loaded with ctypes.
+ * fc_* backs the failed-challenge rate limiter when /auth_request is
+ * served by several SO_REUSEPORT processes (httpapi/workers.py): every
+ * process maps the same named segment, so an IP spreading failed
+ * challenges across processes is counted exactly once, like the
+ * reference's single-process mutex-guarded map (Go banjax:
+ * internal/rate_limit.go:105-156).
+ *
+ * Layout: one 128-byte header then capacity (power of two) 128-byte slots.
+ * Open addressing with linear probing, bounded at FC_MAX_PROBE; no
+ * deletion (lookup never early-stops on stolen slots, so probe chains
+ * stay valid).  When a key's probe window is full, the stalest expired
+ * slot in the window is stolen — semantically identical to keeping it,
+ * because an expired window restarts as if first-seen (OUTSIDE_INTERVAL
+ * resets hits to 1 exactly like FIRST_TIME does).  If nothing in the
+ * window is expired the apply degrades to an unstored first hit and a
+ * dropped counter is bumped (visible in metrics).
+ *
+ * Concurrency: one per-slot spinlock (acquire/release atomics); at most
+ * one lock is ever held at a time.  The lock word stores the OWNER'S PID
+ * (0 = free), so a worker SIGKILLed mid-critical-section cannot wedge
+ * every survivor whose probe chain crosses the slot: a waiter that sees a
+ * dead owner (kill(pid, 0) == ESRCH) steals the lock at once, and any
+ * owner, dead or wedged, is stolen from after a bounded wall-clock spin
+ * (50 ms by default, fc_set_steal_ns).  Unlock is a CAS from our own pid,
+ * so a robbed owner's late unlock cannot release the thief's lock.  The
+ * worst case of a false steal is one corrupted rate-limit slot, never a
+ * hang.
+ *
+ * The memory is the caller's (native/shm.py); the C side only reads and
+ * writes records in it.  Pure C ABI (no Python.h), loaded with ctypes.
  */
 
+#include <errno.h>
+#include <signal.h>
 #include <stdint.h>
 #include <string.h>
+#include <time.h>
+#include <unistd.h>
 
-/* FNV-1a 64, the table's probe hash */
+#define FC_MAGIC 0x626a7868736d3032LL /* "bjxhsm02" — owner-pid lock words */
+#define FC_MAX_PROBE 64
+#define FC_KEY_MAX 104
+
+/* match_type values mirror decisions/rate_limit.py RateLimitMatchType */
+#define FC_FIRST_TIME 0
+#define FC_OUTSIDE_INTERVAL 1
+#define FC_INSIDE_INTERVAL 2
+#define FC_EXCEEDED_BIT 0x10
+#define FC_DROPPED_BIT 0x100
+
+typedef struct {
+    int64_t magic;
+    int64_t capacity; /* slots; power of two */
+    volatile int64_t dropped;
+    int64_t _pad[13];
+} fc_header; /* 128 bytes */
+
+typedef struct {
+    volatile int32_t lock;
+    int32_t key_len; /* 0 = empty */
+    int64_t interval_start_ns;
+    int32_t num_hits;
+    int32_t _pad;
+    char key[FC_KEY_MAX];
+} fc_slot; /* 128 bytes */
+
+static int64_t fc_steal_after_ns = 50 * 1000 * 1000; /* 50 ms default */
+
+/* test hook: lower the steal bound so the live-owner-steal path is
+ * provable without a 50 ms wait per case */
+void fc_set_steal_ns(int64_t ns) { fc_steal_after_ns = ns; }
+
+static inline int32_t fc_self_tag(void) {
+    /* benign race: every thread of a process writes the same value */
+    static int32_t tag;
+    if (tag == 0) {
+        tag = (int32_t)getpid();
+        if (tag == 0)
+            tag = 1;
+    }
+    return tag;
+}
+
+static inline int64_t fc_mono_ns(void) {
+    struct timespec ts;
+    clock_gettime(CLOCK_MONOTONIC, &ts);
+    return (int64_t)ts.tv_sec * 1000000000LL + ts.tv_nsec;
+}
+
+static void fc_lock(fc_slot *s) {
+    int32_t tag = fc_self_tag();
+    int32_t expected = 0;
+    if (__atomic_compare_exchange_n(&s->lock, &expected, tag, 0,
+                                    __ATOMIC_ACQUIRE, __ATOMIC_RELAXED))
+        return; /* uncontended fast path */
+    int64_t t0 = 0;
+    int32_t spins = 0;
+    for (;;) {
+        int32_t owner = __atomic_load_n(&s->lock, __ATOMIC_RELAXED);
+        if (owner == 0) {
+            expected = 0;
+            if (__atomic_compare_exchange_n(&s->lock, &expected, tag, 0,
+                                            __ATOMIC_ACQUIRE,
+                                            __ATOMIC_RELAXED))
+                return;
+            continue;
+        }
+        if (++spins >= 1024) { /* syscalls only every ~1k spins */
+            spins = 0;
+            int64_t now = fc_mono_ns();
+            if (t0 == 0)
+                t0 = now;
+            int dead = (owner != tag && kill((pid_t)owner, 0) != 0 &&
+                        errno == ESRCH);
+            if (dead || now - t0 > fc_steal_after_ns) {
+                if (__atomic_compare_exchange_n(&s->lock, &owner, tag, 0,
+                                                __ATOMIC_ACQUIRE,
+                                                __ATOMIC_RELAXED))
+                    return; /* stolen from a dead/wedged owner */
+            }
+        }
+    }
+}
+
+static inline void fc_unlock(fc_slot *s) {
+    /* release only if still ours: if the lock was stolen (we were the
+     * presumed-dead owner), storing 0 here would unlock the thief */
+    int32_t tag = fc_self_tag();
+    __atomic_compare_exchange_n(&s->lock, &tag, 0, 0, __ATOMIC_RELEASE,
+                                __ATOMIC_RELAXED);
+}
+
 static inline uint64_t fc_hash(const char *key, int32_t len) {
     uint64_t h = 0xcbf29ce484222325ULL;
     for (int32_t i = 0; i < len; i++) {
@@ -19,6 +141,165 @@ static inline uint64_t fc_hash(const char *key, int32_t len) {
         h *= 0x100000001b3ULL;
     }
     return h;
+}
+
+static inline fc_slot *fc_slots(void *base) {
+    return (fc_slot *)((char *)base + sizeof(fc_header));
+}
+
+int64_t fc_init(void *base, int64_t capacity) {
+    /* caller provides zeroed shared memory; capacity must be a power of 2 */
+    if (capacity <= 0 || (capacity & (capacity - 1)))
+        return -1;
+    fc_header *h = (fc_header *)base;
+    h->capacity = capacity;
+    h->dropped = 0;
+    __atomic_store_n(&h->magic, FC_MAGIC, __ATOMIC_RELEASE);
+    return 0;
+}
+
+int64_t fc_check(void *base) {
+    fc_header *h = (fc_header *)base;
+    if (__atomic_load_n(&h->magic, __ATOMIC_ACQUIRE) != FC_MAGIC)
+        return -1;
+    return h->capacity;
+}
+
+/* The window transition — mirrors FailedChallengeRateLimitStates.apply
+ * (rate_limit.go:125-156 quirks: strict >, exceed resets hits to 0). */
+static inline int32_t fc_window(fc_slot *s, int64_t now_ns, int32_t threshold,
+                                int32_t match, int32_t *out_hits) {
+    int32_t rc = match;
+    if (match == FC_OUTSIDE_INTERVAL || match == FC_FIRST_TIME) {
+        s->num_hits = 1;
+        s->interval_start_ns = now_ns;
+    } else {
+        s->num_hits += 1;
+    }
+    if (s->num_hits > threshold) {
+        s->num_hits = 0;
+        rc |= FC_EXCEEDED_BIT;
+        *out_hits = 0;
+    } else {
+        *out_hits = s->num_hits;
+    }
+    return rc;
+}
+
+int32_t fc_apply(void *base, const char *key, int32_t key_len, int64_t now_ns,
+                 int64_t interval_ns, int32_t threshold, int32_t *out_hits) {
+    fc_header *hdr = (fc_header *)base;
+    fc_slot *slots = fc_slots(base);
+    uint64_t mask = (uint64_t)hdr->capacity - 1;
+    if (key_len > FC_KEY_MAX)
+        key_len = FC_KEY_MAX;
+    uint64_t home = fc_hash(key, key_len) & mask;
+
+    int64_t stalest_start = INT64_MAX;
+    int64_t stalest_idx = -1;
+    for (int32_t p = 0; p < FC_MAX_PROBE; p++) {
+        fc_slot *s = &slots[(home + p) & mask];
+        fc_lock(s);
+        if (s->key_len == 0) {
+            memcpy(s->key, key, (size_t)key_len);
+            s->key_len = key_len;
+            int32_t rc = fc_window(s, now_ns, threshold,
+                                   FC_FIRST_TIME, out_hits);
+            fc_unlock(s);
+            return rc;
+        }
+        if (s->key_len == key_len && memcmp(s->key, key, (size_t)key_len) == 0) {
+            int32_t match = (now_ns - s->interval_start_ns > interval_ns)
+                                ? FC_OUTSIDE_INTERVAL
+                                : FC_INSIDE_INTERVAL;
+            int32_t rc = fc_window(s, now_ns, threshold, match,
+                                   out_hits);
+            fc_unlock(s);
+            return rc;
+        }
+        if (s->interval_start_ns < stalest_start) {
+            stalest_start = s->interval_start_ns;
+            stalest_idx = (int64_t)((home + p) & mask);
+        }
+        fc_unlock(s);
+    }
+
+    /* probe window full: steal the stalest slot iff its window expired */
+    if (stalest_idx >= 0) {
+        fc_slot *s = &slots[stalest_idx];
+        fc_lock(s);
+        if (s->key_len != 0 && now_ns - s->interval_start_ns > interval_ns) {
+            memcpy(s->key, key, (size_t)key_len);
+            s->key_len = key_len;
+            int32_t rc = fc_window(s, now_ns, threshold,
+                                   FC_FIRST_TIME, out_hits);
+            fc_unlock(s);
+            return rc;
+        }
+        fc_unlock(s);
+    }
+
+    /* degraded: transient unstored first hit */
+    __atomic_add_fetch(&hdr->dropped, 1, __ATOMIC_RELAXED);
+    int32_t rc = FC_FIRST_TIME | FC_DROPPED_BIT;
+    if (1 > threshold) {
+        rc |= FC_EXCEEDED_BIT;
+        *out_hits = 0;
+    } else {
+        *out_hits = 1;
+    }
+    return rc;
+}
+
+int64_t fc_count(void *base) {
+    fc_header *hdr = (fc_header *)base;
+    fc_slot *slots = fc_slots(base);
+    int64_t n = 0;
+    for (int64_t i = 0; i < hdr->capacity; i++)
+        if (slots[i].key_len != 0)
+            n++;
+    return n;
+}
+
+int64_t fc_dropped(void *base) {
+    fc_header *hdr = (fc_header *)base;
+    return __atomic_load_n(&hdr->dropped, __ATOMIC_RELAXED);
+}
+
+/* Copy live entries out for format_states / metrics.  Returns the number
+ * of entries written (at most max_entries).  keys_blob must hold
+ * max_entries*FC_KEY_MAX bytes; entry i's key is keys_blob[i*FC_KEY_MAX :
+ * i*FC_KEY_MAX+key_lens[i]]. */
+int64_t fc_snapshot(void *base, char *keys_blob, int32_t *key_lens,
+                    int32_t *hits, int64_t *starts, int64_t max_entries) {
+    fc_header *hdr = (fc_header *)base;
+    fc_slot *slots = fc_slots(base);
+    int64_t n = 0;
+    for (int64_t i = 0; i < hdr->capacity && n < max_entries; i++) {
+        fc_slot *s = &slots[i];
+        if (s->key_len == 0)
+            continue;
+        fc_lock(s);
+        if (s->key_len != 0) {
+            memcpy(keys_blob + n * FC_KEY_MAX, s->key, (size_t)s->key_len);
+            key_lens[n] = s->key_len;
+            hits[n] = s->num_hits;
+            starts[n] = s->interval_start_ns;
+            n++;
+        }
+        fc_unlock(s);
+    }
+    return n;
+}
+
+/* test hooks: plant/read a raw owner tag so the fault suite can simulate
+ * a worker killed while holding a slot lock */
+void fc_test_lock_slot(void *base, int64_t idx, int32_t tag) {
+    __atomic_store_n(&fc_slots(base)[idx].lock, tag, __ATOMIC_RELEASE);
+}
+
+int32_t fc_test_slot_owner(void *base, int64_t idx) {
+    return __atomic_load_n(&fc_slots(base)[idx].lock, __ATOMIC_ACQUIRE);
 }
 
 /* ------------------------------------------------------------------ *
@@ -33,8 +314,8 @@ static inline uint64_t fc_hash(const char *key, int32_t len) {
  *
  * Layout: one 128-byte wt_header, then capacity (power of two) records
  * of (128-byte record header + max_rules wt_entry).  Open addressing,
- * linear probe bounded at WT_MAX_PROBE.  Unlike the JAX package's fc_*
- * table, take() deletes — key_len -1 marks a tombstone (probes continue past
+ * linear probe bounded at WT_MAX_PROBE.  Unlike the fc_* table above,
+ * take() deletes — key_len -1 marks a tombstone (probes continue past
  * it; key search may still early-stop on a genuine empty because
  * inserts never skip one).
  *

@@ -12,9 +12,9 @@ bytes_total`).
 
 Every family is declared in `obs/registry.py`; the renderer walks the
 registry, so an undeclared family cannot be emitted. The serving and
-kernel-edge counters are the app's (`serve_stats`, `ipset_stats`). Not
-ported: the JAX exposition's Kafka, worker, fabric, fleet and scenario
-families.
+kernel-edge counters are the app's (`serve_stats`, `ipset_stats`); the
+worker families show when a supervisor runs. Not ported: the JAX
+exposition's fabric, fleet and scenario families.
 
 `parse_text_format()` is the strict parser the tests use: name and
 label syntax, HELP/TYPE placement, histogram bucket monotonicity and
@@ -28,6 +28,7 @@ import re
 from typing import Dict, List, Optional
 
 from banjax_tpu_torch.challenge.stats import get_stats as challenge_stats
+from banjax_tpu_torch.ingest import kafka_wire
 from banjax_tpu_torch.obs import provenance
 from banjax_tpu_torch.obs import registry
 from banjax_tpu_torch.obs.registry import COUNTER, FAMILIES, GAUGE, HISTOGRAM, Histogram
@@ -100,6 +101,7 @@ def render_prometheus(
     flightrec=None,
     serve_stats=None,
     ipset_stats=None,
+    supervisor=None,
 ) -> str:
     """The whole /metrics payload from the sources the metrics line reads
     (`obs/metrics.write_metrics_line`), through non-destructive reads."""
@@ -113,6 +115,11 @@ def render_prometheus(
         values.update(matcher.stats.peek(getattr(matcher, "device_windows", None), matcher))
     if pipeline is not None:
         values.update(pipeline.prom_snapshot())
+    values["KafkaSkippedBatches"] = kafka_wire.skipped_batch_count()
+    if supervisor is not None:
+        values["HttpWorkers"] = supervisor.n_workers
+        values["HttpWorkerRespawns"] = supervisor.respawn_count
+        values["HttpFcDropped"] = getattr(failed_challenge_states, "dropped", 0)
 
     w = _Writer()
     breaker_state = values.pop("MatcherBreakerState", None)

@@ -14,8 +14,10 @@ views (`snapshot()`); `/metrics` reads only the non-destructive `peek()`
 views. Neither touches the card: the values are host counters, and the
 traffic sketch is read through its throttled `pull`. The serving and
 kernel-edge counters belong to the app (`serve_stats`, `ipset_stats`),
-not to process-wide singletons. Not ported: the JAX line's Kafka,
-multi-process worker and fabric keys.
+not to process-wide singletons. `KafkaSkippedBatches` shows only when
+nonzero (the wire client's module count), and the multi-process worker
+keys only when a supervisor runs, as in JAX. Not ported: the JAX line's
+fabric keys.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import time
 from typing import Callable, Optional, TextIO
 
 from banjax_tpu_torch.challenge.stats import get_stats as challenge_stats
+from banjax_tpu_torch.ingest import kafka_wire
 
 REPORT_INTERVAL_SECONDS = 29  # banjax.go:196
 
@@ -40,6 +43,7 @@ def write_metrics_line(
     pipeline=None,
     serve_stats=None,
     ipset_stats=None,
+    supervisor=None,
 ) -> None:
     challenges, blocks = dynamic_lists.metrics()
     line = {
@@ -77,6 +81,16 @@ def write_metrics_line(
         line["IpsetErrors"] = snap["errors_total"]
         line["IpsetFallbacks"] = snap["fallback_total"]
         line["IpsetQueueShed"] = snap["queue_shed_total"]
+    # Kafka batches skipped for an undecodable codec: only when nonzero,
+    # so the reference's exact key set holds on clean streams
+    skipped = kafka_wire.skipped_batch_count()
+    if skipped:
+        line["KafkaSkippedBatches"] = skipped
+    if supervisor is not None:
+        # multi-process serving: nonzero respawns = workers crashed and healed
+        line["HttpWorkers"] = supervisor.n_workers
+        line["HttpWorkerRespawns"] = supervisor.respawn_count
+        line["HttpFcDropped"] = getattr(failed_challenge_states, "dropped", 0)
     if health is not None:
         # the /healthz aggregate, flattened onto the line
         snap = health.snapshot()
@@ -103,6 +117,7 @@ class MetricsReporter:
         pipeline_getter: Optional[Callable[[], object]] = None,
         serve_stats=None,
         ipset_stats=None,
+        supervisor_getter: Optional[Callable[[], object]] = None,
     ):
         self.log_path = log_path
         self.dynamic_lists = dynamic_lists
@@ -114,6 +129,7 @@ class MetricsReporter:
         self.pipeline_getter = pipeline_getter
         self.serve_stats = serve_stats
         self.ipset_stats = ipset_stats
+        self.supervisor_getter = supervisor_getter
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -138,4 +154,5 @@ class MetricsReporter:
                     self.health,
                     self.pipeline_getter() if self.pipeline_getter else None,
                     self.serve_stats, self.ipset_stats,
+                    self.supervisor_getter() if self.supervisor_getter else None,
                 )

@@ -13,9 +13,8 @@ the port unchanged. Two namespaces share one declaration:
   * `prom`: the `banjax_*` family `/metrics` exposes
     (`obs/exposition.py`). Interval-window keys are line-only.
 
-Not declared: the families of modules the port does not have (Kafka,
-multi-process workers, the fabric, fleet observability, the scenario
-harness, the mesh), and the keys whose meaning in the port would differ
+Not declared: the families of modules the port does not have (the
+fabric, fleet observability, the scenario harness, the mesh), and the keys whose meaning in the port would differ
 from the JAX key's: `MatcherCpuFallbackBatches` (an open breaker refuses,
 it never reroutes to the host), `MatcherBudgetTrips` (a budget breach is
 counted but is no breaker failure), the transfer-byte keys
@@ -293,6 +292,16 @@ FAMILIES: List[Family] = [
            "shard-index label)",
            prom="banjax_encode_worker_busy_fraction",
            labels=("worker",)),
+    Family(COUNTER, "kafka record batches skipped (undecodable codec)",
+           line_key="KafkaSkippedBatches",
+           prom="banjax_kafka_skipped_batches_total"),
+    Family(GAUGE, "live SO_REUSEPORT http worker processes",
+           line_key="HttpWorkers", prom="banjax_http_workers"),
+    Family(COUNTER, "http workers respawned after a crash",
+           line_key="HttpWorkerRespawns",
+           prom="banjax_http_worker_respawns_total"),
+    Family(COUNTER, "failed-challenge states dropped by the shm limiter",
+           line_key="HttpFcDropped", prom="banjax_http_fc_dropped_total"),
     Family(GAUGE, "aggregate health (0 healthy / 1 degraded / 2 failed)",
            line_key="HealthStatus",
            prom="banjax_health_status"),

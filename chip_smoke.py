@@ -76,6 +76,20 @@ standalone testing, so these phases run against `FakeKernelEdge`:
 (nothing reaches the machine's kernel); each checks that the ipset adds
 are its ban log's IptablesBlock IPs and that `/is_banned` sees them.
 
+Then `kafka`: the pipeline phase's app and first 8 writes with Kafka on,
+against a broker stand-in this script holds (`KafkaBrokerStandIn`, on the
+port's wire codecs). 4,096 Baskerville commands in bursts of 512 go
+through the pipeline's command lane between the writes; every
+well-formed command must land in the lists with its decision and expiry,
+and `/auth_request` must answer each commanded IP from the fast-path
+table; the ban log must be the pipeline phase's; a challenge burst's
+reports must all reach the report topic, and a `kafka.send` drill must
+deliver the report it held. It prints commands/s, command -> answer
+latency and lines/s. Then `workers`: the service phase's app with
+`http_workers: 4` serving its request mix from 32 clients, a lockout
+spread over the processes, the cold routes, a reload and a SIGKILLed
+worker; only the primary may hold a CUDA context.
+
 The kernel phases time each shape three ways: `ms` (CUDA events around
 20 back-to-back wrapper calls; the host's enqueue bounds it when slower
 than the card, and `host_enqueue_us` says so), `device_ms` (the same 20
@@ -209,6 +223,37 @@ OBSERVABILITY = dict(
     capture_s=2.0,
     reporter_interval_s=1.0,
     drill_lines=32,
+)
+# the Kafka channel: the pipeline phase's app and its first 8 stamped
+# writes with Kafka on against a broker stand-in; before each write a
+# burst of 512 Baskerville commands (4,096 in all, about 2 % malformed),
+# 16 commanded IPs a burst polled for command -> answer latency; then a
+# 256-request challenge burst whose reports must all reach the report topic
+KAFKA = dict(
+    n_rules=1000,
+    batch_lines=4096,
+    capacity=65536,
+    warm_capacity=131_072,
+    writes=8,
+    commands=4096,
+    burst=512,
+    malformed_frac=0.02,
+    latency_samples=16,
+    challenge_ips=64,      # 64 solved, 32 cookieless, 32 wrong cookies, 32 offenders x 4
+)
+# multi-process serving: the service phase's app with http_workers: 4 and
+# its request mix (6,157 requests from 32 keep-alive clients), a lockout,
+# the cold routes, a worker SIGKILLed under 8 clients' load, a reload
+WORKERS = dict(
+    n_rules=1000,
+    batch_lines=4096,
+    capacity=65536,
+    warm_capacity=131_072,
+    workers=4,
+    threads=32,
+    alone_requests=256,
+    lockout_ip="110.0.0.1",
+    kill_clients=8,
 )
 SHA_HOST = "sha.example"   # the one host in sitewide_sha_inv_list (block)
 LOG_HOST = "example.org"
@@ -1959,17 +2004,18 @@ def run_service(dev, n_rules, batch_lines, capacity, warm_capacity, writes, rota
 
         # one client alone, request by request: where a request's time goes
         alone = {}
+        alone_reqs = {
+            "fast_path_block": [(blocked[j % len(blocked)], LOG_HOST, None)
+                                for j in range(alone_requests)],
+            "chain_cookieless": [(f"107.0.{j >> 8}.{j & 255}", SHA_HOST, None)
+                                 for j in range(alone_requests)],
+            "chain_solved_kernel_c": [
+                (ip, SHA_HOST, solve(new_challenge_cookie_at(secret, now + 3600, ip), bits))
+                for ip in (f"108.0.{j >> 8}.{j & 255}" for j in range(alone_requests))],
+        }
         c = HttpClient(app.port)
         try:
-            for kind, reqs in (
-                ("fast_path_block", [(blocked[j % len(blocked)], LOG_HOST, None)
-                                     for j in range(alone_requests)]),
-                ("chain_cookieless", [(f"107.0.{j >> 8}.{j & 255}", SHA_HOST, None)
-                                      for j in range(alone_requests)]),
-                ("chain_solved_kernel_c", [
-                    (ip, SHA_HOST, solve(new_challenge_cookie_at(secret, now + 3600, ip), bits))
-                    for ip in (f"108.0.{j >> 8}.{j & 255}" for j in range(alone_requests))]),
-            ):
+            for kind, reqs in alone_reqs.items():
                 us = []
                 for ip, host, cookie in reqs:
                     t_q = time.perf_counter()
@@ -2091,6 +2137,11 @@ def run_service(dev, n_rules, batch_lines, capacity, warm_capacity, writes, rota
         "line_to_ban_ms": {"p50": 1e3 * percentile(lat, 0.5), "p99": 1e3 * percentile(lat, 0.99)},
         "host_us_per_line_by_stage": stages,
         "prefix": flat[:cross_check], "prefix_answers": answers[:cross_check],
+        # what the workers phase replays
+        "entries": [(ip, e.expires, int(e.decision), e.from_baskerville, e.domain)
+                    for ip, e in entries.items()],
+        "flat": flat, "requests_per_s": len(flat) / req_wall, "alone": alone,
+        "alone_requests": alone_reqs,
     }
 
 
@@ -2212,8 +2263,10 @@ def run_pipeline(dev, service, n_rules, batch_lines, capacity, warm_capacity, wr
         written = [stamped(stream[k * batch_lines : (k + 1) * batch_lines], stamp_base + 2.0 * k)
                    for k in range(writes)]
         t_log = time.perf_counter()
+        ban_bytes = []  # the ban log's size after each write
         for k in range(writes):
             appended_at[k] = write(app, rec, log_path, written[k], f"pipelined write {k + 1}", k)
+            ban_bytes.append(os.path.getsize(app.banner._ban_log.name))
             if k + 1 == rotate_after:
                 os.replace(log_path, log_path + ".1")
                 open(log_path, "w").close()
@@ -2428,6 +2481,7 @@ def run_pipeline(dev, service, n_rules, batch_lines, capacity, warm_capacity, wr
     acc = d2["accounting"]
     check(acc[0] == acc[1] + acc[2] + acc[3], "the drill's accounting identity")
     return launches, {"written": written, "rotate_after": rotate_after, "ban_log": ban_log,
+                      "ban_log_bytes_after": ban_bytes,
                       "lines_per_s": n_lines / log_wall, "warm": warm,
                       "filler": filler[: 8 * drill_lines], "offenders": sorted(offenders),
                       "capture_lines": filler[-batch_lines // 2:], "stages": stages,
@@ -2768,6 +2822,824 @@ def run_observability(dev, pipeline, n_rules, batch_lines, capacity, warm_capaci
     return launches
 
 
+# ------------------------------------------------------------ the Kafka channel
+
+
+class KafkaBrokerStandIn:
+    """A one-node Kafka broker in this process, built on the port's wire
+    codecs (`banjax_tpu_torch/ingest/kafka_wire.py`): the API subset the
+    port's client speaks on the "modern" ladder (ApiVersions v0, Metadata
+    v4-7, ListOffsets v2-4, Fetch v4-10 with long polls, Produce v3-7,
+    record batch v2), in-memory logs, one thread per connection, on a
+    loopback port. `append` is another producer writing to a topic;
+    `fetches` counts fetch requests by topic."""
+
+    VERSIONS = {0: (3, 7), 1: (4, 10), 2: (2, 4), 3: (4, 7), 18: (0, 0)}
+
+    def __init__(self):
+        import socket
+
+        self.logs = {}
+        self.fetches = {}
+        self._cv = threading.Condition()
+        self._server = socket.create_server(("127.0.0.1", 0))
+        self.port = self._server.getsockname()[1]
+        self._stop = threading.Event()
+        self._conns = []
+
+    def start(self) -> "KafkaBrokerStandIn":
+        threading.Thread(target=self._accept, name="broker-accept", daemon=True).start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        with self._cv:
+            self._cv.notify_all()
+        self._server.close()
+        for c in self._conns:
+            try:
+                c.close()
+            except OSError:
+                pass
+
+    def append(self, topic: str, values) -> float:
+        """Append messages to partition 0 of `topic`; returns the time."""
+        with self._cv:
+            self.logs.setdefault(topic, []).extend(values)
+            self._cv.notify_all()
+            return time.time()
+
+    def messages(self, topic: str) -> list:
+        with self._cv:
+            return list(self.logs.get(topic, []))
+
+    def _accept(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._server.accept()
+            except OSError:
+                return
+            self._conns.append(conn)
+            threading.Thread(target=self._serve, args=(conn,), name="broker-conn",
+                             daemon=True).start()
+
+    def _serve(self, conn) -> None:
+        import struct
+
+        from banjax_tpu_torch.ingest import kafka_wire as kw
+
+        def read(n):
+            buf = b""
+            while len(buf) < n:
+                chunk = conn.recv(n - len(buf))
+                if not chunk:
+                    return None
+                buf += chunk
+            return buf
+
+        try:
+            while not self._stop.is_set():
+                head = read(4)
+                payload = head and read(struct.unpack(">i", head)[0])
+                if not payload:
+                    return
+                r = kw._Reader(payload)
+                api, version, corr = r.i16(), r.i16(), r.i32()
+                r.string()
+                body = self._dispatch(kw, api, version, r)
+                conn.sendall(struct.pack(">ii", len(body) + 4, corr) + body)
+        except OSError:
+            pass
+        finally:
+            conn.close()
+
+    def _dispatch(self, kw, api, v, r) -> bytes:
+        import struct
+
+        if api == 18:
+            return struct.pack(">hi", 0, len(self.VERSIONS)) + b"".join(
+                struct.pack(">hhh", k, lo, hi) for k, (lo, hi) in sorted(self.VERSIONS.items()))
+        lo, hi = self.VERSIONS.get(api, (-1, -1))
+        if not lo <= v <= hi:
+            raise OSError(f"api {api} v{v} outside [{lo}, {hi}]")
+        if api == 3:  # Metadata: one broker (this one), one partition a topic
+            topics = [r.string() for _ in range(r.i32())]
+            out = struct.pack(">ii", 0, 1) + struct.pack(">i", 0) + kw._string("127.0.0.1")
+            out += struct.pack(">i", self.port) + kw._string(None) + kw._string("stand-in")
+            out += struct.pack(">ii", 0, len(topics))
+            for t in topics:
+                out += struct.pack(">h", 0) + kw._string(t) + struct.pack(">bi", 0, 1)
+                out += struct.pack(">hii", 0, 0, 0)
+                if v >= 7:
+                    out += struct.pack(">i", 0)
+                out += struct.pack(">iiii", 1, 0, 1, 0) + struct.pack(">i", 0)
+            return out
+        if api == 2:  # ListOffsets (latest)
+            r.i32()
+            r.i8()
+            r.i32()
+            topic = r.string()
+            r.i32()
+            part = r.i32()
+            if v >= 4:
+                r.i32()
+            r.i64()
+            with self._cv:
+                end = len(self.logs.get(topic, []))
+            out = struct.pack(">ii", 0, 1) + kw._string(topic) + struct.pack(">iih", 1, part, 0)
+            out += struct.pack(">qq", -1, end)
+            return out + (struct.pack(">i", 0) if v >= 4 else b"")
+        if api == 1:  # Fetch: long poll until the offset has data
+            r.i32()
+            max_wait = r.i32()
+            r.i32()
+            r.i32()
+            r.i8()
+            if v >= 7:
+                r.i32()
+                r.i32()
+            r.i32()
+            topic = r.string()
+            r.i32()
+            part = r.i32()
+            if v >= 9:
+                r.i32()
+            offset = r.i64()
+            r.i64()
+            r.i32()
+            deadline = time.time() + max_wait / 1000.0
+            with self._cv:
+                self.fetches[topic] = self.fetches.get(topic, 0) + 1
+                while (len(self.logs.get(topic, [])) <= offset and time.time() < deadline
+                       and not self._stop.is_set()):
+                    self._cv.wait(max(0.001, deadline - time.time()))
+                msgs = self.logs.get(topic, [])[offset:]
+                end = len(self.logs.get(topic, []))
+            data = b"".join(kw._encode_record_batch_v2(m, 0, offset + i) for i, m in enumerate(msgs))
+            out = struct.pack(">i", 0) + (struct.pack(">hi", 0, 0) if v >= 7 else b"")
+            out += struct.pack(">i", 1) + kw._string(topic) + struct.pack(">i", 1)
+            out += struct.pack(">ihqqqi", part, 0, end, end, 0, 0)
+            return out + struct.pack(">i", len(data)) + data
+        if api == 0:  # Produce (acks=1)
+            r.string()
+            r.i16()
+            r.i32()
+            r.i32()
+            topic = r.string()
+            r.i32()
+            part = r.i32()
+            values = [val for _, val in kw._decode_record_batches(r.bytes_() or b"")]
+            with self._cv:
+                log = self.logs.setdefault(topic, [])
+                base = len(log)
+                log.extend(values)
+                self._cv.notify_all()
+            out = struct.pack(">i", 1) + kw._string(topic) + struct.pack(">iihq", 1, part, 0, base)
+            return out + struct.pack(">qqi", -1, 0, 0)
+        raise OSError(f"api {api} is not served")
+
+
+BASKERVILLE_NAMES = ("challenge_ip", "block_ip", "challenge_session", "block_session")
+TTL_IP_HOST, TTL_SESSION_HOST = "ttl-ip.example", "ttl-session.example"
+KAFKA_TTLS = dict(expiring_decision_ttl_seconds=300, block_ip_ttl_seconds=600,
+                  block_session_ttl_seconds=900,
+                  sites_to_block_ip_ttl_seconds={TTL_IP_HOST: 1200},
+                  sites_to_block_session_ttl_seconds={TTL_SESSION_HOST: 1500})
+
+
+def kafka_commands(n: int, seed: int, malformed_frac: float) -> list:
+    """Baskerville commands (JSON bytes): the four names in turn-shuffled
+    order on IPs of 198.18.0.0/15 (disjoint from the log's), hosts with
+    per-site TTL overrides, session ids with %-escapes and '+', repeats of
+    an IP under another name, and `malformed_frac` malformed messages."""
+    rng = random.Random(seed)
+    hosts = (TTL_IP_HOST, TTL_SESSION_HOST, "kafka-a.example", "kafka-b.example")
+    out = []
+    for i in range(n):
+        if rng.random() < malformed_frac:
+            out.append(rng.choice([b"{not json", b"[1, 2]", b'{"Name": "block_ip", "Value": "1.2"}',
+                                   b'{"Name": "unknown_cmd", "Value": "198.18.0.1"}']))
+            continue
+        name = BASKERVILLE_NAMES[rng.randrange(4)]
+        j = rng.randrange(n // 2)  # some IPs get two commands
+        cmd = {"Name": name, "Value": f"198.{18 + (j >> 16)}.{(j >> 8) & 255}.{j & 255}",
+               "host": rng.choice(hosts), "source": "baskerville"}
+        if name.endswith("session"):
+            cmd["session_id"] = rng.choice([f"s%2B{i}%3D", f"s+{i}", f"plain{i}", f"a%20b{i}"])
+        out.append(json.dumps(cmd).encode())
+    return out
+
+
+def expected_commands(raws, cfg) -> tuple:
+    """What the lists must hold after `raws`, by the reference's rules
+    (kafka.go:176-283), independent of the code under test: per IP and per
+    session id the most severe decision (updates are monotonic), its TTL
+    and the index of the command that set it. Returns (by ip, by session
+    id, well-formed count)."""
+    from urllib.parse import unquote_plus
+
+    ips, sessions, ok = {}, {}, 0
+    severity = {"challenge": 2, "block": 3}
+    for k, raw in enumerate(raws):
+        try:
+            cmd = json.loads(raw)
+        except ValueError:
+            continue
+        if not isinstance(cmd, dict) or cmd.get("Name") not in BASKERVILLE_NAMES:
+            continue
+        name, host, value = cmd["Name"], cmd.get("host", ""), cmd.get("Value", "")
+        kind, target = name.split("_")
+        ttl = cfg.expiring_decision_ttl_seconds if kind == "challenge" else (
+            cfg.sites_to_block_ip_ttl_seconds.get(host, cfg.block_session_ttl_seconds)
+            if target == "ip" else
+            cfg.sites_to_block_session_ttl_seconds.get(host, cfg.block_ip_ttl_seconds))
+        if target == "ip":
+            if len(value) <= 4:
+                continue
+            key, table = value, ips
+        else:
+            key, table = unquote_plus(cmd["session_id"]), sessions
+        ok += 1
+        if key not in table or severity[kind] > table[key][0]:
+            table[key] = (severity[kind], ttl, k, host)
+    return ips, sessions, ok
+
+
+def run_kafka(dev, pipeline, n_rules, batch_lines, capacity, warm_capacity, writes, commands,
+              burst, malformed_frac, latency_samples, challenge_ips, edge,
+              timeout_s=300.0) -> dict:
+    """The Kafka channel on device `dev`: the `pipeline` phase's app and
+    stamped writes with `disable_kafka: false` and the writer on, against
+    `KafkaBrokerStandIn`. Before each of `writes` writes, a burst of
+    `burst` Baskerville commands goes onto the command topic (the reader
+    starts at the LAST offset, so the first burst waits for its first
+    fetch) and through the pipeline's command lane; `latency_samples`
+    commanded IPs a burst are polled on `/auth_request` from the append
+    until the answer changes. Checks: every well-formed command is in the
+    lists with its decision and expiry (the reference's TTL rules);
+    `/auth_request` answers every commanded IP from the fast-path table;
+    admitted = processed + shed + failed, with every command drained; the
+    ban log is the `pipeline` phase's for the same writes, byte for byte;
+    a challenge burst's reports all reach the report topic; a `kafka.send`
+    x2 drill delivers the report it held. Returns the launches of A, B
+    and C."""
+    import os
+    import tempfile
+
+    from banjax_tpu_torch import workload
+    from banjax_tpu_torch.cli import BanjaxApp
+    from banjax_tpu_torch.crypto.challenge import new_challenge_cookie_at
+    from banjax_tpu_torch.decisions.model import Decision
+    from banjax_tpu_torch.matcher.kernels import fused_match_window as fmw
+    from banjax_tpu_torch.matcher.kernels import nfa_match, pow_verify
+    from banjax_tpu_torch.resilience import failpoints
+
+    kernels = {"nfa_match": nfa_match.KERNEL, "window_scan": fmw.KERNEL,
+               "pow_verify": pow_verify.KERNEL}
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    workdir_obj = tempfile.TemporaryDirectory(prefix="kafka-", dir=os.path.join(here, "build"))
+    workdir = workdir_obj.name
+    patterns = workload.generate_rules(n_rules, seed=SEED)
+    broker = KafkaBrokerStandIn().start()
+    path = service_config(workdir, patterns, capacity, warm_capacity, batch_lines, "kafka",
+                          pipeline_enabled=True, disable_kafka=False, disable_kafka_writer=False,
+                          kafka_brokers=[f"127.0.0.1:{broker.port}"], **KAFKA_TTLS)
+    log_path = os.path.join(workdir, "kafka.log")
+    app = BanjaxApp(path, device=dev)
+    sock = edge.attach(app)
+    cfg = app.config_holder.get()
+    cmd_topic, rep_topic = cfg.kafka_command_topic, cfg.kafka_report_topic
+    raws = kafka_commands(commands, SEED + 5, malformed_frac)
+    want_ips, want_sessions, well_formed = expected_commands(raws, cfg)
+    # the latency probes: IPs whose first command is the one that sets
+    # their final decision, so their answer goes from 200 straight to it
+    # (each probe of a challenged IP counts as a failed challenge: the
+    # answer check below makes it two, under the threshold)
+    first_cmd = {}
+    for j, raw in enumerate(raws):
+        try:
+            value = json.loads(raw).get("Value")
+        except (ValueError, AttributeError):
+            continue
+        first_cmd.setdefault(value, j)
+    rec = {"lines": 0}
+
+    def on_results(lines, results):
+        rec["lines"] += len(lines)
+
+    app.pipeline.on_results = on_results
+
+    def write(lines, tag):
+        target = rec["lines"] + len(lines)
+        append_lines(log_path, lines)
+        wait_for(lambda: rec["lines"] >= target, tag, timeout_s)
+
+    app.start_background(port=0)
+    setup_s = time.perf_counter() - t_phase
+    errors = []
+    try:
+        wait_for(app.tailer.opened.is_set, "the tailer to open the log", timeout_s)
+        write(stamped(pipeline["warm"]), "the warm-up batch")
+        # commands appended before the reader's first fetch are never read
+        wait_for(lambda: broker.fetches.get(cmd_topic, 0) > 0, "the reader's first fetch",
+                 timeout_s)
+        for kern in kernels.values():
+            kern.reset_launches()
+        stats = app.pipeline.stats
+        items0 = stats.command_items
+        appended_at, drain_s, latency = {}, [], []
+        n_lines, t_lines = 0, 0.0
+        t_run = time.perf_counter()
+        for k in range(writes):
+            part = raws[k * burst:(k + 1) * burst]
+            probes = [(ip, 429 if sev == 2 else 403)
+                      for ip, (sev, _, j, _) in sorted(want_ips.items(), key=lambda kv: kv[1][2])
+                      if k * burst <= j < (k + 1) * burst and first_cmd[ip] == j][:latency_samples]
+            t_a = time.perf_counter()
+            appended = broker.append(cmd_topic, part)
+            for j in range(k * burst, k * burst + len(part)):
+                appended_at[j] = appended
+            # command -> answer: poll each probe IP until its answer changes
+            c = HttpClient(app.port)
+            try:
+                pending = dict(probes)
+                while pending:
+                    for ip, want in list(pending.items()):
+                        raw = c.get(ip, "kafka-probe.example")
+                        if int(raw.split(b" ", 2)[1]) == want:
+                            latency.append(time.perf_counter() - t_a)
+                            del pending[ip]
+                    if time.perf_counter() - t_a > timeout_s:
+                        raise RuntimeError(f"commanded answers did not change: {pending}")
+            finally:
+                c.close()
+            wait_for(lambda: stats.command_items - items0 >= (k + 1) * burst,
+                     f"burst {k + 1} through the command lane", timeout_s)
+            drain_s.append(time.perf_counter() - t_a)
+            t_w = time.perf_counter()
+            write(pipeline["written"][k], f"kafka-phase write {k + 1}")
+            t_lines += time.perf_counter() - t_w
+            n_lines += len(pipeline["written"][k])
+        run_s = time.perf_counter() - t_run
+        flush_ok = app.pipeline.flush(timeout_s)
+        launches = {n: kern.launches for n, kern in kernels.items()}
+        totals = stats.peek()
+        with open(app.banner._ban_log.name) as f:
+            ban_log = f.read()
+        want_ban_log = pipeline["ban_log"][:pipeline["ban_log_bytes_after"][writes - 1]]
+
+        # every well-formed command in the lists, with its decision and expiry
+        entries = app.dynamic_lists.format_ip_entries()
+        sessions = dict(app.dynamic_lists._by_session_id)
+        bad_lists = []
+        for table, got in ((want_ips, entries), (want_sessions, sessions)):
+            for key, (sev, ttl, j, host) in table.items():
+                e = got.get(key)
+                ok = (e is not None and int(e.decision) == sev and e.from_baskerville
+                      and e.domain == host
+                      and appended_at[j] + ttl - 1.0 <= e.expires <= time.time() + ttl)
+                if not ok:
+                    bad_lists.append((key, sev, ttl, e))
+        # the fast path answers each commanded IP from the table
+        s0 = app.serve_stats.snapshot()
+        c = HttpClient(app.port)
+        try:
+            wrong_answers = [
+                (ip, int(raw.split(b" ", 2)[1])) for ip, (sev, *_r) in sorted(want_ips.items())
+                for raw in [c.get(ip, "kafka-probe.example")]
+                if int(raw.split(b" ", 2)[1]) != (429 if sev == 2 else 403)]
+        finally:
+            c.close()
+        s1 = app.serve_stats.snapshot()
+        table_hits = s1["hits_total"] - s0["hits_total"]
+
+        # the chain's reports for a challenge burst: solved cookies pass,
+        # cookieless and wrong cookies fail, offenders fail past the
+        # threshold and are banned
+        threshold = cfg.too_many_failed_challenges_threshold
+        now = int(time.time())
+        q = challenge_ips
+        reqs = []
+        for j in range(q):
+            ip = f"109.0.0.{j + 1}"
+            reqs.append((ip, SHA_HOST, solve(new_challenge_cookie_at(cfg.hmac_secret, now + 3600, ip),
+                                             cfg.sha_inv_expected_zero_bits)))
+        reqs += [(f"109.0.1.{j + 1}", SHA_HOST, None) for j in range(q // 2)]
+        reqs += [(f"109.0.2.{j + 1}", SHA_HOST, "bm90LWEtY29va2ll") for j in range(q // 2)]
+        offenders = [f"109.0.3.{j + 1}" for j in range(q // 2)]
+        reqs += [(ip, SHA_HOST, None) for _ in range(threshold + 1) for ip in offenders]
+        want_reports = {"ip_passed_challenge": q, "ip_banned": len(offenders),
+                        "ip_failed_challenge": q + len(offenders) * (threshold + 1)}
+        before = len(broker.messages(rep_topic))
+
+        def client(rs):
+            try:
+                cc = HttpClient(app.port)
+                try:
+                    for ip, host, cookie in rs:
+                        cc.get(ip, host, cookie)
+                finally:
+                    cc.close()
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        # offenders' requests go in order from one client each
+        per_client = [[r for r in reqs if r[0] not in offenders][i::8] for i in range(8)]
+        for i, ip in enumerate(offenders):
+            per_client[i % 8] += [r for r in reqs if r[0] == ip]
+        threads = [threading.Thread(target=client, args=(rs,)) for rs in per_client]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout_s)
+        want_total = sum(want_reports.values())
+
+        def chain_reports():
+            return [json.loads(m) for m in broker.messages(rep_topic)[before:]
+                    if json.loads(m)["name"] != "status"]
+
+        try:
+            wait_for(lambda: len(chain_reports()) >= want_total, "the burst's reports", 30.0)
+        except RuntimeError:
+            pass  # counted as dropped below
+        got_reports = {}
+        for m in chain_reports():
+            got_reports[m["name"]] = got_reports.get(m["name"], 0) + 1
+        dropped = want_total - sum(got_reports.values())
+
+        # the kafka.send drill: two send failures, the held report delivered
+        failpoints.arm("kafka.send", "error", count=2)
+        t_d = time.perf_counter()
+        mark = f"drill-{time.time()}"
+        from banjax_tpu_torch.ingest.reports import report_passed_failed_banned_message
+
+        report_passed_failed_banned_message(cfg, "ip_passed_challenge", "109.0.9.9", mark)
+        wait_for(lambda: any(json.loads(m).get("value_site") == mark
+                             for m in broker.messages(rep_topic)), "the held report", 30.0)
+        drill = {"fired": failpoints.fired_count("kafka.send"),
+                 "seconds_to_deliver": time.perf_counter() - t_d}
+        failpoints.disarm()
+        # the writer reports healthy once its send returned
+        wait_for(lambda: app.health.snapshot()["components"]["kafka-writer"]["status"]
+                 == "healthy", "the writer's health after the drill", 10.0)
+        health = app.health.snapshot()["components"]
+    finally:
+        failpoints.disarm()
+        app.stop_background()
+        broker.stop()
+    workdir_obj.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    lat = sorted(latency)
+    emit({
+        "phase": "kafka",
+        "config": "the pipeline phase's app with disable_kafka: false, the writer on, the "
+                  "deploy file's topics, a broker stand-in on loopback (modern protocol "
+                  f"ladder) and command TTLs {KAFKA_TTLS}",
+        "setup_s": setup_s, "writes": writes, "lines": n_lines, "commands": len(raws),
+        "well_formed_commands": well_formed, "burst": burst,
+        "commands_per_s": len(raws) / sum(drain_s),
+        "command_to_answer_ms": {"n": len(lat), "p50": 1e3 * percentile(lat, 0.5),
+                                 "p99": 1e3 * percentile(lat, 0.99), "max": 1e3 * lat[-1]},
+        "burst_drain_ms": {"p50": 1e3 * percentile(drain_s, 0.5), "max": 1e3 * max(drain_s)},
+        "lines_per_s": {"observed": n_lines / t_lines,
+                        "pipeline_phase": pipeline["lines_per_s"]},
+        "run_s": run_s, "launches": launches, "totals": {
+            k: totals[k] for k in ("PipelineAdmittedLines", "PipelineProcessedLines",
+                                   "PipelineShedLines", "PipelineDrainErrorLines",
+                                   "PipelineCommandItems", "PipelineCommandBatches")},
+        "lists": {"ips": len(want_ips), "sessions": len(want_sessions), "wrong": len(bad_lists),
+                  "first_wrong": [str(x) for x in bad_lists[:3]]},
+        "answers": {"commanded_ips": len(want_ips), "table_hits": table_hits,
+                    "wrong": wrong_answers[:3], "n_wrong": len(wrong_answers)},
+        "ban_log_lines": ban_log.count("\n"),
+        "ban_log_identical_to_pipeline_phase": ban_log == want_ban_log,
+        "reports": {"requests": len(reqs), "want": want_reports, "got": got_reports,
+                    "dropped": dropped},
+        "send_drill": drill, "health": {k: v["status"] for k, v in health.items()},
+        "kernel_edge_adds": len(sock.entries), "phase_s": phase_s,
+    })
+    check(flush_ok and not errors, f"the pipeline drained and no client failed: {errors[:3]}")
+    check(not bad_lists, f"every well-formed command is in the lists: {bad_lists[:3]}")
+    check(not wrong_answers and table_hits == len(want_ips),
+          f"/auth_request answers each commanded IP from the table: {wrong_answers[:3]}")
+    check(totals["PipelineAdmittedLines"] == totals["PipelineProcessedLines"]
+          + totals["PipelineShedLines"] + totals["PipelineDrainErrorLines"]
+          and totals["PipelineCommandItems"] - items0 == len(raws)
+          and totals["PipelineShedLines"] == totals["PipelineDrainErrorLines"] == 0,
+          "admitted == processed + shed + failed, and every command drained")
+    check(ban_log == want_ban_log and ban_log.count("\n") > 0,
+          "the ban log equals the pipeline phase's for the same writes")
+    check(got_reports == want_reports and dropped == 0,
+          f"the report topic holds the burst's reports: {got_reports} != {want_reports}")
+    check(drill["fired"] == 2, f"the kafka.send drill fired twice and delivered: {drill}")
+    check(health.get("kafka-reader", {}).get("status") == "healthy"
+          and health.get("kafka-writer", {}).get("status") == "healthy",
+          f"the Kafka loops are healthy: {health}")
+    check(dev.type != "cuda" or (launches["nfa_match"] > 0 and launches["window_scan"] > 0),
+          "kernels A and B launched in the kafka phase")
+    return launches
+
+
+# ------------------------------------------------------ multi-process serving
+
+
+def gpu_pids() -> list:
+    """The pids that hold a CUDA context on the card, as nvidia-smi lists
+    them (pids of the machine's namespace, which may not be this one's)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return sorted(int(x) for x in out.split() if x.strip().isdigit())
+
+
+def opens_the_card(pid: int) -> bool:
+    """Whether process `pid` holds a /dev/nvidia* device open, as every
+    process with a CUDA context does."""
+    import os
+
+    fd_dir = f"/proc/{pid}/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            if os.readlink(os.path.join(fd_dir, fd)).startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            pass
+    return False
+
+
+def run_workers(dev, service, n_rules, batch_lines, capacity, warm_capacity, workers, threads,
+                alone_requests, lockout_ip, kill_clients, edge, timeout_s=300.0) -> dict:
+    """Multi-process serving on device `dev`: the `service` phase's app
+    with `http_workers: workers` (SO_REUSEPORT on the port the primary
+    bound), its dynamic lists seeded with the service phase's log-path
+    bans (broadcast to the workers' replicas, mirrored into the named
+    decision table they read). Checks: the service phase's 1,024-request
+    prefix from one client answers as the single-process app did; the
+    whole request mix from `threads` keep-alive clients answers with the
+    expected statuses; one IP failing challenges over fresh connections
+    (spread over the processes) is banned at exactly the threshold with
+    one ban-log line, and the kernel set holds exactly the ban log's
+    IptablesBlock IPs; the cold routes answer through the proxy; a reload
+    reaches every process; a SIGKILLed worker is respawned while
+    `kill_clients` clients keep going (health reads degraded, then
+    healthy, and no request fails but the killed connections' in-flight
+    ones); only the primary holds a CUDA context. Returns the launches of
+    A, B and C (kernel C from the primary; the workers check PoW on the
+    host)."""
+    import os
+    import re
+    import signal
+    import tempfile
+
+    from banjax_tpu_torch import workload
+    from banjax_tpu_torch.cli import BanjaxApp
+    from banjax_tpu_torch.decisions.model import Decision
+    from banjax_tpu_torch.matcher.kernels import fused_match_window as fmw
+    from banjax_tpu_torch.matcher.kernels import nfa_match, pow_verify
+
+    kernels = {"nfa_match": nfa_match.KERNEL, "window_scan": fmw.KERNEL,
+               "pow_verify": pow_verify.KERNEL}
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    workdir_obj = tempfile.TemporaryDirectory(prefix="workers-", dir=os.path.join(here, "build"))
+    workdir = workdir_obj.name
+    patterns = workload.generate_rules(n_rules, seed=SEED)
+    path = service_config(workdir, patterns, capacity, warm_capacity, batch_lines, "workers",
+                          http_workers=workers)
+    for kern in kernels.values():
+        kern.reset_launches()
+    app = BanjaxApp(path, device=dev)
+    sock = edge.attach(app)
+    app.start_background(port=0)
+    errors, out = [], {}
+    try:
+        sup = app._supervisor
+        check(sup is not None and sup.n_workers == workers, "the app runs its workers")
+        check(sup.wait_ready(timeout_s), "every worker listens on the primary's port")
+        setup_s = time.perf_counter() - t_phase
+        for ip, expires, decision, from_bask, domain in service["entries"]:
+            app.dynamic_lists.update(ip, expires, Decision(decision), from_bask, domain)
+        time.sleep(0.5)  # the broadcast datagrams reach the replicas
+
+        # ---- the prefix from one client, as the single-process app answered it
+        c = HttpClient(app.port)
+        try:
+            answers = [c.get(ip, host, cookie) for ip, host, cookie, _ in service["prefix"]]
+        finally:
+            c.close()
+        prefix_diff = [i for i, a in enumerate(answers)
+                       if masked(a) != masked(service["prefix_answers"][i])]
+
+        # ---- the whole mix from `threads` keep-alive clients ----
+        flat = service["flat"]
+        thread_of, per_thread = {}, [[] for _ in range(threads)]
+        for i, req in enumerate(flat):
+            per_thread[thread_of.setdefault(req[0], len(thread_of) % threads)].append((i, req))
+        statuses = [None] * len(flat)
+        holders, card_open = [], {}
+
+        def client(reqs):
+            try:
+                cc = HttpClient(app.port)
+                try:
+                    for i, (ip, host, cookie, _) in reqs:
+                        statuses[i] = int(cc.get(ip, host, cookie).split(b" ", 2)[1])
+                finally:
+                    cc.close()
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        ts = [threading.Thread(target=client, args=(r,)) for r in per_thread]
+        t_r = time.perf_counter()
+        for t in ts:
+            t.start()
+        time.sleep(0.5)
+        # while the workers serve: who holds the card, and who loaded torch
+        with_torch = {pid: "libtorch" in open(f"/proc/{pid}/maps").read() for pid in sup.pids()}
+        if dev.type == "cuda":
+            holders = gpu_pids()
+            card_open = {pid: opens_the_card(pid) for pid in [os.getpid()] + sup.pids()}
+        for t in ts:
+            t.join(timeout_s)
+        req_wall = time.perf_counter() - t_r
+        wrong = [(flat[i][:2], statuses[i], flat[i][3]) for i in range(len(flat))
+                 if statuses[i] != flat[i][3]]
+
+        # ---- one client alone, by kind ----
+        alone = {}
+        c = HttpClient(app.port)
+        try:
+            for kind, reqs in service["alone_requests"].items():
+                us = []
+                for ip, host, cookie in reqs[:alone_requests]:
+                    t_q = time.perf_counter()
+                    c.get(ip, host, cookie)
+                    us.append(1e6 * (time.perf_counter() - t_q))
+                alone[kind] = {"p50_us": percentile(us, 0.5), "p99_us": percentile(us, 0.99)}
+        finally:
+            c.close()
+
+        # ---- failed challenges across processes: the lockout ----
+        cfg = app.config_holder.get()
+        threshold = cfg.too_many_failed_challenges_threshold
+        def fresh(ip, host, cookie=None):
+            cc = HttpClient(app.port)  # a fresh connection each: spread over the processes
+            try:
+                return int(cc.get(ip, host, cookie).split(b" ", 2)[1])
+            finally:
+                cc.close()
+
+        lock_statuses = [fresh(lockout_ip, SHA_HOST, "bm90LWEtY29va2ll")
+                         for _ in range(threshold + 1)]
+        # then every process answers 403 (the ban reaches each replica)
+        wait_for(lambda: all(fresh(lockout_ip, SHA_HOST) == 403 for _ in range(2 * workers)),
+                 "the lockout's ban in every process", timeout_s)
+        wait_for(lambda: app.ipset_writer.queue_depth() == 0
+                 and lockout_ip in {ip for ip, _ in sock.entries}, "the lockout's ipset add",
+                 timeout_s)
+        with open(app.banner._ban_log.name) as f:
+            ban_rows = [json.loads(r) for r in f.read().splitlines() if r]
+        lock_lines = [r for r in ban_rows if r["client_ip"] == lockout_ip]
+        iptables_ips = {r["client_ip"] for r in ban_rows if r["action"] == "IptablesBlock"}
+        added = {ip for ip, _ in sock.entries}
+
+        # ---- the cold routes through the proxy, over fresh connections ----
+        cold = {}
+        for route, want in (("/rate_limit_states", "failed challenges:"),
+                            ("/decision_lists", "per_site:"),
+                            (f"/is_banned?ip={lockout_ip}", "IptablesBlock"),
+                            ("/metrics", f"banjax_http_workers {workers}"),
+                            ("/healthz", "worker-supervisor")):
+            codes = set()
+            for _ in range(2 * (workers + 1)):
+                code, body, _ = http_text(app.port, route)
+                codes.add(code if want in body else -code)
+            cold[route] = sorted(codes)
+
+        # ---- a SIGKILLed worker under load ----
+        victim = sup._procs[0]
+        kill = {"sent": 0, "failed": 0, "failed_at_s": []}
+        stop = threading.Event()
+        load_lock = threading.Lock()
+        blocked = [e[0] for e in service["entries"] if e[2] >= int(Decision.NGINX_BLOCK)]
+
+        def load(tid):
+            cc, n = None, 0
+            while not stop.is_set():
+                try:
+                    if cc is None:
+                        cc = HttpClient(app.port)
+                    cc.get(blocked[(tid + n) % len(blocked)], LOG_HOST)
+                    with load_lock:
+                        kill["sent"] += 1
+                except (OSError, RuntimeError):
+                    with load_lock:
+                        kill["failed"] += 1
+                        kill["failed_at_s"].append(time.perf_counter() - t_k)
+                    cc = None  # the client reconnects, as nginx retries upstream
+                n += 1
+            if cc is not None:
+                cc.close()
+
+        t_k = time.perf_counter()
+        ls = [threading.Thread(target=load, args=(t,)) for t in range(kill_clients)]
+        for t in ls:
+            t.start()
+        time.sleep(0.5)
+        seen = []
+        t_k = time.perf_counter()
+        os.kill(victim.pid, signal.SIGKILL)
+        respawned = False
+        while time.perf_counter() - t_k < 60:
+            st = app.health.snapshot()["components"]["worker-supervisor"]["status"]
+            if not seen or seen[-1] != st:
+                seen.append(st)
+            respawned = sup._procs[0].pid != victim.pid and sup.wait_ready(0.05)
+            if respawned and st == "healthy" and "degraded" in seen:
+                break
+            time.sleep(0.05)
+        respawn_s = time.perf_counter() - t_k
+        time.sleep(0.5)
+        stop.set()
+        for t in ls:
+            t.join(timeout_s)
+
+        # ---- a reload reaches every process ----
+        with open(path) as f:
+            text = f.read()
+        version = "chip-smoke-reload"
+        with open(path, "w") as f:
+            f.write(re.sub(r"(?m)^config_version: .*$", f"config_version: {version}", text))
+        app.reload()
+        t_l = time.perf_counter()
+        versions = set()
+        while time.perf_counter() - t_l < 30:
+            versions = {json.loads(http_text(app.port, "/info")[1])["config_version"]
+                        for _ in range(3 * (workers + 1))}
+            if versions == {version}:
+                break
+            time.sleep(0.05)
+        reload_s = time.perf_counter() - t_l
+        launches = {n: kern.launches for n, kern in kernels.items()}
+        worker_pids = sup.pids()
+        out = {"respawns": sup.respawn_count}
+    finally:
+        app.stop_background()
+    workdir_obj.cleanup()
+    phase_s = time.perf_counter() - t_phase
+    emit({
+        "phase": "workers",
+        "config": f"the service phase's app (deploy/banjax-config.yaml) with http_workers: "
+                  f"{workers}, on an ephemeral port",
+        "cpu_count": os.cpu_count(), "workers": workers, "setup_s": setup_s,
+        "seeded_entries": len(service["entries"]),
+        "prefix_requests": len(answers), "prefix_differing": len(prefix_diff),
+        "first_differing": prefix_diff[:3],
+        "requests": len(flat), "threads": threads, "request_wall_s": req_wall,
+        "requests_per_s": {"workers": len(flat) / req_wall,
+                           "single_process_service_phase": service["requests_per_s"]},
+        "one_client_alone": {"workers": alone,
+                             "single_process_service_phase": service["alone"]},
+        "wrong_statuses": len(wrong), "first_wrong": wrong[:3],
+        "lockout": {"statuses": lock_statuses, "threshold": threshold,
+                    "ban_log_lines": len(lock_lines)},
+        "kernel_edge": {"iptables_block_ips": sorted(iptables_ips), "ipset_adds": sorted(added)},
+        "cold_routes": cold, "kill": dict(kill, health=seen, respawn_s=respawn_s,
+                                          respawned=respawned),
+        "reload": {"versions": sorted(versions), "seconds": reload_s},
+        "nvidia_smi_compute_pids": holders, "opens_the_card": card_open,
+        "workers_with_torch": with_torch,
+        "primary_pid": os.getpid(), "worker_pids": worker_pids,
+        "launches": launches, "respawns": out.get("respawns"), "phase_s": phase_s,
+    })
+    check(not errors, f"no client failed: {errors[:3]}")
+    check(not prefix_diff, "the prefix answers as the single-process service phase's app did")
+    check(not wrong, f"every response of the mix has its expected status: {wrong[:3]}")
+    check(lock_statuses == [429] * threshold + [403] and len(lock_lines) == 1,
+          f"the lockout bans at the threshold with one ban-log line: {lock_statuses}")
+    check(added == iptables_ips and lockout_ip in added,
+          "the ipset adds are the ban log's IptablesBlock IPs")
+    check(all(codes == [200] for codes in cold.values()),
+          f"the cold routes answer through the proxy: {cold}")
+    check(respawned and seen[-1] == "healthy" and "degraded" in seen,
+          f"the killed worker was respawned; health went degraded, then healthy: {seen}")
+    # a failure is a connection of the killed process (or queued to it),
+    # reset at the kill; none may fail later
+    check(kill["sent"] > 0 and kill["failed"] <= 2 * kill_clients
+          and all(0 <= t < 1.0 for t in kill["failed_at_s"]),
+          f"no request failed but the killed connections': {kill}")
+    check(versions == {version}, f"the reload reached every process: {versions}")
+    # nvidia-smi lists pids of the machine's namespace: one process, and
+    # that one the primary by its open device files
+    check(dev.type != "cuda" or (card_open.get(os.getpid()) and len(holders) == 1
+                                 and not any(card_open[p] for p in worker_pids if p in card_open)),
+          f"only the primary holds a CUDA context: {card_open}, nvidia-smi {holders}")
+    check(not any(with_torch.values()), f"no worker loaded torch: {with_torch}")
+    check(dev.type != "cuda" or launches["pow_verify"] > 0,
+          "kernel C launched from the primary")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2806,6 +3678,12 @@ def main() -> int:
         t0 = time.perf_counter()
         observed = run_observability(dev, writes, **OBSERVABILITY, edge=edge)
         emit({"phase": "observability_seconds", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        kafka = run_kafka(dev, writes, **KAFKA, edge=edge)
+        emit({"phase": "kafka_seconds", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        served = run_workers(dev, service_summary, **WORKERS, edge=edge)
+        emit({"phase": "workers_seconds", "seconds": time.perf_counter() - t0})
         calls = edge.calls()
     finally:
         edge.close()
@@ -2815,7 +3693,10 @@ def main() -> int:
         k["launches_by_path"]["service"] = service[k["name"]]
         k["launches_by_path"]["pipeline"] = pipeline[k["name"]]
         k["launches_by_path"]["observability"] = observed[k["name"]]
-        k["launches"] += service[k["name"]] + pipeline[k["name"]] + observed[k["name"]]
+        k["launches_by_path"]["kafka"] = kafka[k["name"]]
+        k["launches_by_path"]["workers"] = served[k["name"]]
+        k["launches"] += (service[k["name"]] + pipeline[k["name"]] + observed[k["name"]]
+                          + kafka[k["name"]] + served[k["name"]])
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {

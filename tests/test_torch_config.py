@@ -1,9 +1,9 @@
 """The port's config loader against the JAX schema: the deploy file loads,
 every key the JAX schema reads and the port does not is named (one
 warning, `Config.not_ported`), the service's and the pipeline's keys are
-read with the JAX defaults and checks, and so are the kernel edge's and
-the observability plane's, `pipeline_enabled: true` loads, and
-`http_workers` other than 0 is refused."""
+read with the JAX defaults and checks, and so are the kernel edge's, the
+observability plane's and the Kafka channel's, `pipeline_enabled: true`
+loads, and `http_workers` loads as the JAX schema reads it."""
 
 import logging
 from pathlib import Path
@@ -42,6 +42,15 @@ OBS_KEYS = (
     "flightrec_dir", "flightrec_min_interval_s", "flightrec_keep",
     "flightrec_provenance_records",
 )
+# the Kafka channel's keys (commands in, reports out, the command TTLs)
+KAFKA_KEYS = (
+    "disable_kafka_writer", "kafka_security_protocol", "kafka_ssl_ca", "kafka_ssl_cert",
+    "kafka_ssl_key", "kafka_ssl_key_password", "kafka_command_topic", "kafka_report_topic",
+    "kafka_min_bytes", "kafka_max_bytes", "kafka_max_wait_ms",
+    "kafka_dialer_timeout_seconds", "kafka_dialer_keep_alive_seconds", "dnet",
+    "dnet_to_partition", "block_ip_ttl_seconds", "block_session_ttl_seconds",
+    "sites_to_block_ip_ttl_seconds", "sites_to_block_session_ttl_seconds",
+)
 
 
 def _jax_keys():
@@ -61,6 +70,7 @@ def test_every_jax_schema_key_is_read_or_named_not_ported():
     assert set(SERVICE_KEYS) <= read
     assert set(PIPELINE_KEYS) <= read
     assert set(OBS_KEYS) <= read
+    assert set(KAFKA_KEYS) <= read
 
 
 def test_deploy_file_names_exactly_the_keys_the_port_does_not_read(caplog):
@@ -71,10 +81,10 @@ def test_deploy_file_names_exactly_the_keys_the_port_does_not_read(caplog):
         cfg = config_from_yaml_text(text)
     assert cfg.not_ported == expected
     assert {"serve_fastpath_enabled", "server_log_file", "banning_log_file"}.isdisjoint(expected)
-    assert {"matcher_backend", "kafka_command_topic", "fabric_enabled",
-            "flightrec_fleet_capture"} <= set(expected)
+    assert {"matcher_backend", "fabric_enabled", "flightrec_fleet_capture"} <= set(expected)
     assert set(PIPELINE_KEYS).isdisjoint(expected)
     assert set(OBS_KEYS).isdisjoint(expected)
+    assert set(KAFKA_KEYS).isdisjoint(expected) and "http_workers" not in expected
     warnings = [r.getMessage() for r in caplog.records if "not ported" in r.getMessage()]
     assert warnings == ["not ported: " + ", ".join(expected)]
 
@@ -95,8 +105,8 @@ def test_service_keys_match_the_jax_schema():
 
 
 @pytest.mark.parametrize("text, match", [
-    ("http_workers: 2", "http_workers"),
-    ("http_workers: -1", "http_workers"),
+    ("http_workers: '2'", "http_workers"),
+    ("http_workers: true", "http_workers"),
     ("serve_decision_table_capacity: 0", "serve_decision_table_capacity"),
     ("http_fast_path: 1", "http_fast_path"),
     ("kafka_brokers: kafka:9092", "kafka_brokers"),
@@ -201,3 +211,69 @@ def test_obs_keys_are_checked(text, match):
     with pytest.raises(ValueError, match=match) as jax_err:
         jax_schema.config_from_yaml_text(text)
     assert str(port_err.value) == str(jax_err.value)
+
+
+KAFKA_TEXT = """
+disable_kafka: false
+disable_kafka_writer: true
+kafka_brokers: ["127.0.0.1:9092", "127.0.0.1:9093"]
+kafka_security_protocol: ssl
+kafka_ssl_ca: /ca.pem
+kafka_ssl_cert: /c.pem
+kafka_ssl_key: /c.key
+kafka_ssl_key_password: pw
+kafka_command_topic: cmds
+kafka_report_topic: reps
+kafka_min_bytes: 2
+kafka_max_bytes: 4096
+kafka_max_wait_ms: 50
+kafka_dialer_timeout_seconds: 3
+kafka_dialer_keep_alive_seconds: 9
+dnet: d2
+dnet_to_partition: {d1: 0, d2: 3}
+block_ip_ttl_seconds: 600
+block_session_ttl_seconds: 900
+sites_to_block_ip_ttl_seconds: {a.example: 77}
+sites_to_block_session_ttl_seconds: {b.example: 88}
+"""
+
+
+@pytest.mark.parametrize("text", [KAFKA_TEXT, "", "deploy"])
+def test_kafka_keys_match_the_jax_schema(text):
+    text = DEPLOY.read_text() if text == "deploy" else text
+    jax_cfg, cfg = jax_schema.config_from_yaml_text(text), config_from_yaml_text(text)
+    for key in KAFKA_KEYS + ("disable_kafka", "kafka_brokers", "pipeline_kafka"):
+        assert getattr(cfg, key) == getattr(jax_cfg, key), key
+    assert not set(KAFKA_KEYS) & set(cfg.not_ported)
+
+
+@pytest.mark.parametrize("text, match", [
+    ("kafka_min_bytes: '2'", "kafka_min_bytes"),
+    ("kafka_command_topic: 7", "kafka_command_topic"),
+    ("disable_kafka_writer: 1", "disable_kafka_writer"),
+    ("dnet_to_partition: [1]", "dnet_to_partition"),
+    ("sites_to_block_ip_ttl_seconds: x", "sites_to_block_ip_ttl_seconds"),
+])
+def test_kafka_keys_are_checked_as_jax(text, match):
+    for load in (config_from_yaml_text, jax_schema.config_from_yaml_text):
+        with pytest.raises(ValueError, match=match):
+            load(text)
+
+
+@pytest.mark.parametrize("workers", [2, -1, -2, 0])
+def test_http_workers_loads_as_jax(workers):
+    text = f"http_workers: {workers}"
+    assert config_from_yaml_text(text).http_workers == \
+        jax_schema.config_from_yaml_text(text).http_workers == workers
+
+
+def test_deploy_not_ported_list_shrank_by_exactly_the_kafka_and_worker_keys():
+    """What this slice reads of the deploy file is its Kafka keys and
+    `http_workers`; the rest of what was not ported stays named."""
+    text = DEPLOY.read_text()
+    in_file = set(yaml.safe_load(text))
+    cfg = config_from_yaml_text(text)
+    slice_keys = set(KAFKA_KEYS) | {"http_workers"}
+    before = sorted(k for k in in_file if k in _jax_keys() - (_port_read_keys() - slice_keys))
+    assert sorted(set(before) - set(cfg.not_ported)) == sorted(in_file & slice_keys)
+    assert set(cfg.not_ported) <= set(before)

@@ -89,8 +89,7 @@ DIFFERENT_MEANING = {
 # JAX families of modules the port does not have
 NOT_PORTED_MODULES = (
     ("Mesh", "banjax_mesh_"), ("Fabric", "banjax_fabric_"), ("", "banjax_fleet_"),
-    ("", "banjax_scenario_"), ("Kafka", "banjax_kafka_"), ("HttpWorker", "banjax_http_worker"),
-    ("HttpFc", "banjax_http_fc"),
+    ("", "banjax_scenario_"),
 )
 
 
