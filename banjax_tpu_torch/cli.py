@@ -1,6 +1,5 @@
 """Entry points of the port: `build_matcher`, `build_decision_chain` and
-the service around both, `BanjaxApp` (a copy of `banjax_tpu/cli.py`'s,
-without the fabric and fleet observability, which the port does not have).
+the service around both, `BanjaxApp` (a copy of `banjax_tpu/cli.py`'s).
 
 Reference behavior (Go banjax): banjax.go:66-275 — parse the three flags,
 build the shared state, start the HTTP server and the log tailer,
@@ -43,6 +42,28 @@ memory, replicates the dynamic lists to the workers, and has a
 `PrimarySupervisor` start N `SO_REUSEPORT` worker processes on the port
 the primary bound. A table that cannot be created raises (the JAX app
 falls back to single-process serving, or to the chain).
+
+The decision fabric (`fabric/`): with `fabric_enabled: true` each shard
+is one process of this app. Its `FabricService` listens on
+`fabric_listen` before the tailer feeds; the tailer's lines go through
+its router, which keeps the lines this shard owns on the consistent-hash
+ring and forwards the rest to their owners; every decision is also
+published to the Kafka command topic (the banner is wrapped before the
+first matcher build) and the reader's dispatch goes through the fabric's
+deduper. A dead shard's range is taken over by its ring successors,
+which replay their forward journal through their matcher. With the
+pipeline off, the tailer thread and the fabric's connection threads both
+feed the matcher: the port serialises that entry with one lock (the JAX
+runner takes none). Fleet observability: `/metrics?fleet=1`
+(`fleet_metrics_enabled`), the fleet SLO engine, the flight recorder's
+`fabric.json` and `peers/<node>/` capture (`flightrec_fleet_capture`),
+and the origin resolver that puts a forwarded line's origin node and
+trace id on its ban's provenance record.
+
+    python -m banjax_tpu_torch.cli -config-file shard-a.yaml [-port 8082] [-device cpu]
+
+(`-port` and `-device`, which the reference has not, give co-located
+shards an HTTP port each, and let a rehearsal run the plain versions.)
 """
 
 from __future__ import annotations
@@ -249,6 +270,10 @@ class BanjaxApp:
         self._matcher = None
         self._matcher_generation = -1
         self._matcher_lock = threading.Lock()
+        # with the pipeline off, one batch at a time enters the matcher:
+        # the tailer and the fabric's connection threads both feed it, and
+        # its native parse writes one scratch that a parsed batch aliases
+        self._consume_lock = threading.Lock()
         # the streaming pipeline between the tailer and the matcher
         self.pipeline = None
         if config.pipeline_enabled:
@@ -262,6 +287,43 @@ class BanjaxApp:
             config.server_log_file, self._consume_lines,
             health=self.health.register("tailer", stale_after=60.0),
         )
+
+        # the decision fabric: shard the IP keyspace across N processes of
+        # this app. The banner is wrapped before the first matcher build,
+        # so every decision fans out from the start
+        self.fabric = None
+        if config.fabric_enabled:
+            from banjax_tpu_torch.fabric.service import FabricService
+            from banjax_tpu_torch.ingest.kafka_io import handle_command
+            from banjax_tpu_torch.obs import fleet
+
+            self.fabric = FabricService(
+                config,
+                local_submit=self._fabric_local_submit,
+                apply_command=lambda cmd: handle_command(
+                    self.config_holder.get(), cmd, self.dynamic_lists),
+                health=self.health,
+                # peers pull this shard's metrics (T_STATS), ask it to
+                # explain an IP (T_EXPLAIN) and capture it (T_FLIGHTREC)
+                metrics_text_fn=self.render_metrics_text,
+                explain_fn=self._explain_local,
+                health_bits_fn=lambda: fleet.compute_health_bits(
+                    slo=getattr(self, "slo", None), matcher=self._matcher),
+            )
+            self.banner = self.fabric.wrap_banner(self.banner)
+            # a forwarded line's ban carries its origin node and trace id
+            provenance.set_origin_resolver(fleet.get_origin_index().resolve)
+        # the federated /metrics?fleet=1: one merged exposition of every
+        # alive shard, pulled over the fabric's peer wire
+        self.fleet_scraper = None
+        if self.fabric is not None and config.fleet_metrics_enabled:
+            from banjax_tpu_torch.obs.fleet import FleetScraper
+
+            self.fleet_scraper = FleetScraper(
+                self.fabric.node_id, local_text_fn=self.render_metrics_text,
+                peers_fn=self.fabric.fleet_pull_peers,
+                timeout_s=config.fleet_scrape_timeout_ms / 1000.0,
+            )
 
         # the flight recorder, installed as the module-level trigger target
         # so the breaker, scheduler, failure-state and SLO hooks stay one
@@ -278,6 +340,13 @@ class BanjaxApp:
                 health=self.health,
                 slo_getter=lambda: self.slo,
                 traffic_fn=self._traffic_snapshot,
+                fabric_fn=self._fabric_snapshot if self.fabric is not None else None,
+                # the cluster capture: every alive peer's snapshot under
+                # peers/<node_id>/
+                fleet_capture_fn=(
+                    self._fleet_capture
+                    if self.fabric is not None and config.flightrec_fleet_capture else None
+                ),
             )
             flightrec.install(self.flightrec)
         # the SLO engine: burn rates from non-destructive reads; a breach
@@ -293,6 +362,17 @@ class BanjaxApp:
                 on_breach=lambda name, burn: flightrec.notify(f"slo-{name}",
                                                               f"burn rates {burn}"),
             )
+        # the fleet SLO: a second engine burning the cluster's counter sums
+        # from the last federated scrape, with the same window mechanics
+        self.fleet_slo = None
+        if self.fleet_scraper is not None and config.slo_enabled:
+            from banjax_tpu_torch.obs.slo import SloEngine
+
+            self.fleet_slo = SloEngine(
+                collect_fn=self.fleet_scraper.fleet_collect,
+                on_breach=lambda name, burn: flightrec.notify(
+                    f"fleet-slo-{name}", f"fleet burn rates {burn}"),
+            )
         metrics_path = ("list-metrics.log" if config.standalone_testing
                         else config.metrics_log_file)
         self.metrics = MetricsReporter(
@@ -304,6 +384,7 @@ class BanjaxApp:
             serve_stats=self.serve_stats,
             ipset_stats=self.ipset_stats,
             supervisor_getter=lambda: self._supervisor,
+            fabric_getter=lambda: self.fabric.stats if self.fabric is not None else None,
         )
         self.kafka_reader = None
         self.kafka_writer = None
@@ -360,7 +441,25 @@ class BanjaxApp:
             matcher=self._matcher, pipeline=self.pipeline, health=self.health,
             slo=self.slo, flightrec=self.flightrec, serve_stats=self.serve_stats,
             ipset_stats=self.ipset_stats, supervisor=self._supervisor,
+            fabric=self.fabric.stats if self.fabric is not None else None,
         )
+
+    def _fabric_snapshot(self):
+        """fabric.json of an incident bundle: the peer table, the ring's
+        ownership and the last takeover."""
+        return self.fabric.describe()
+
+    def _fleet_capture(self, incident: str):
+        from banjax_tpu_torch.obs import fleet
+
+        return fleet.capture_fleet(incident, self.fabric.fleet_capture_peers)
+
+    def _explain_local(self, ip: str) -> dict:
+        """This shard's /decisions/explain payload, for a shard that
+        proxies an explain of an IP this one owns (T_EXPLAIN)."""
+        from banjax_tpu_torch.httpapi.server import explain_payload
+
+        return explain_payload(self.dynamic_lists, ip)
 
     def _traffic_snapshot(self):
         """traffic.json of an incident bundle: a forced sketch pull."""
@@ -403,18 +502,39 @@ class BanjaxApp:
                 self._matcher_generation = generation
             return cfg, self._matcher
 
-    def _consume_lines(self, lines):
+    def _fabric_local_submit(self, lines, t_read=None, hop="local") -> int:
+        """The single-process consume path: what the fabric's router calls
+        for the lines this shard owns, and what a forwarded chunk's drain
+        calls. `t_read` and `hop` reach the pipeline's e2e histogram."""
         if self.pipeline is not None:
-            # asynchronous: the drain stage applies the results; submit
-            # applies the bounded backpressure to the tailer
-            self.pipeline.submit(lines, t_read=time.monotonic())
-            return None
-        cfg, matcher = self._current_matcher()
-        results = matcher.consume_lines(lines)
+            self.pipeline.submit(lines, t_read=t_read, hop=hop)
+            return len(lines)
+        self._consume_serial(lines)
+        return len(lines)
+
+    def _consume_serial(self, lines):
+        with self._consume_lock:
+            cfg, matcher = self._current_matcher()
+            results = matcher.consume_lines(lines)
         if cfg.debug:
             for result in results:
                 log.debug("consumeLine: %s", result)
-        return results  # the tailer ignores this; tests read it
+        return results
+
+    def _consume_lines(self, lines):
+        # the tailer-read stamp: the e2e histogram runs from here to the
+        # effector commit, by hop
+        t_read = time.monotonic()
+        if self.fabric is not None:
+            # owned lines stay here, the rest ride the peer wire
+            self.fabric.submit(lines, t_read=t_read)
+            return None
+        if self.pipeline is not None:
+            # asynchronous: the drain stage applies the results; submit
+            # applies the bounded backpressure to the tailer
+            self.pipeline.submit(lines, t_read=t_read)
+            return None
+        return self._consume_serial(lines)  # the tailer ignores this; tests read it
 
     def start_workers(self) -> None:
         """Start the pipeline's stage threads, if on, the SLO sampler, the
@@ -423,10 +543,16 @@ class BanjaxApp:
         from banjax_tpu_torch.ingest.kafka_io import KafkaReader, KafkaWriter
 
         config = self.config_holder.get()
+        if self.fabric is not None:
+            # listen before the tailer feeds: peers may already forward
+            # this shard's range
+            self.fabric.start()
         if self.pipeline is not None:
             self.pipeline.start()
         if self.slo is not None:
             self.slo.start(config.slo_sample_seconds)
+        if self.fleet_slo is not None:
+            self.fleet_slo.start(config.slo_sample_seconds)
         self.tailer.start()
         # commands share the pipeline's admission buffer when it runs
         kafka_pipeline = self.pipeline if config.pipeline_kafka else None
@@ -444,6 +570,10 @@ class BanjaxApp:
                 self.kafka_writer = KafkaWriter(
                     self.config_holder, health=self.health.register("kafka-writer"))
                 self.kafka_writer.start()
+        if self.fabric is not None and self.kafka_reader is not None:
+            # the fabric's deduper in front of the command dispatch: own
+            # echoes and already-seen (origin, seq) pairs are dropped
+            self.kafka_reader.dispatch_raw = self.fabric.dispatch_raw
         self.metrics.start()
         if not config.disable_kafka:
             threading.Thread(target=self._heartbeat, name="kafka-status", daemon=True).start()
@@ -479,6 +609,9 @@ class BanjaxApp:
             flightrec_getter=lambda: self.flightrec,
             ipset_stats=self.ipset_stats,
             supervisor_getter=lambda: self._supervisor,
+            fabric_getter=lambda: self.fabric.stats if self.fabric is not None else None,
+            fleet_getter=lambda: self.fleet_scraper,
+            fabric_service_getter=lambda: self.fabric,
         )
 
     async def _serve(self, install_signal_handlers: bool, port: int) -> None:
@@ -519,14 +652,15 @@ class BanjaxApp:
         finally:
             await handle.cleanup()
 
-    def run_forever(self) -> None:
-        """Blocking run for the CLI (main thread; installs the signal handlers)."""
+    def run_forever(self, port: Optional[int] = None) -> None:
+        """Blocking run for the CLI (main thread; installs the signal
+        handlers); serves HTTP on `port`, the reference's 8081 by default."""
         from banjax_tpu_torch.httpapi.server import LISTEN_PORT
 
         signal.signal(signal.SIGHUP, lambda s, f: self.reload())
         self.start_workers()
         try:
-            asyncio.run(self._serve(True, LISTEN_PORT))
+            asyncio.run(self._serve(True, LISTEN_PORT if port is None else port))
         finally:
             self.shutdown()
 
@@ -564,14 +698,14 @@ class BanjaxApp:
     def shutdown(self) -> None:
         """Stop the workers and release what the app holds, in the JAX order
         but for Kafka: the HTTP worker processes, the tailer and the Kafka
-        loops (no new lines or commands; JAX stops Kafka last), the
-        pipeline (it drains what was admitted, then its threads stop), then
+        loops (no new lines or commands; JAX stops Kafka last), the fabric
+        (its peers take over this shard's range), the pipeline (it drains what was admitted, then its threads stop), then
         the lists' sweeper, the failed-challenge table and the decision
         table (a named segment is unlinked), the matcher, the kernel edge's
         writer (it drains its queue) and the files. The SLO sampler and the
         metrics reporter stop after the pipeline; the flight recorder is
         uninstalled, so a later app in the same process starts clean."""
-        from banjax_tpu_torch.obs import flightrec
+        from banjax_tpu_torch.obs import flightrec, provenance
 
         self._stop_event.set()
         if self._supervisor is not None:
@@ -582,11 +716,20 @@ class BanjaxApp:
         for loop in (self.kafka_reader, self.kafka_writer):
             if loop is not None:
                 loop.stop()
+        if self.fabric is not None:
+            # after the tailer (no new routes), before the pipeline drains:
+            # peers see the connection refused and take over
+            self.fabric.stop()
         if self.pipeline is not None and tailer_stopped:
             self.pipeline.flush()
             tailer_stopped = self.pipeline.stop()
         if self.slo is not None:
             self.slo.stop()
+        if self.fleet_slo is not None:
+            self.fleet_slo.stop()
+        if self.fabric is not None:
+            # a later app in the same process starts without a resolver
+            provenance.set_origin_resolver(None)
         if self.flightrec is not None and flightrec.installed() is self.flightrec:
             flightrec.install(None)
         self.metrics.stop()
@@ -633,14 +776,20 @@ def main(argv: Optional[list] = None) -> int:
                         default="/etc/banjax/banjax-config.yaml", help="config file")
     parser.add_argument("-debug", dest="debug", action="store_true",
                         help="debug mode with verbose logging")
+    # not a flag of the reference: co-located shards of a fabric each
+    # need a port of their own
+    parser.add_argument("-port", dest="port", type=int, default=None,
+                        help="HTTP port (default 8081)")
+    parser.add_argument("-device", dest="device", default=None,
+                        help="torch device (default: the card; cpu runs the plain versions)")
     args = parser.parse_args(argv)
 
     logging.basicConfig(
         level=logging.DEBUG if args.debug else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
-    app = BanjaxApp(args.config_file, args.standalone_testing, args.debug)
-    app.run_forever()
+    app = BanjaxApp(args.config_file, args.standalone_testing, args.debug, device=args.device)
+    app.run_forever(args.port)
     return 0
 
 

@@ -23,7 +23,9 @@ kernel's per-entry timeouts expire bans); for the observability plane
 the `kafka_*` keys, `disable_kafka_writer`, `dnet`, `dnet_to_partition` and
 the command TTLs (`block_ip_ttl_seconds`, `block_session_ttl_seconds` and
 their per-site maps); for multi-process serving (`httpapi/workers.py`)
-`http_workers`; all with the JAX defaults and checks.
+`http_workers`; for the decision fabric and fleet observability
+(`fabric/`, `obs/fleet.py`) the `fabric_*` and `fleet_*` keys and
+`flightrec_fleet_capture`; all with the JAX defaults and checks.
 
 A key the JAX schema reads and the port does not (the modules it
 configures are not ported yet) is named in one warning per load and
@@ -240,6 +242,29 @@ class Config:
     flightrec_min_interval_s: float = 60.0
     flightrec_keep: int = 16
     flightrec_provenance_records: int = 256
+    # the decision fabric (fabric/): this shard's id and listen address,
+    # the peer table (node id -> "host:port", this node's own included)
+    fabric_enabled: bool = False
+    fabric_node_id: str = ""
+    fabric_listen: str = ""
+    fabric_peers: Dict[str, str] = dataclasses.field(default_factory=dict)
+    fabric_vnodes: int = 64
+    fabric_send_timeout_ms: float = 2000.0
+    fabric_takeover_grace_ms: float = 500.0
+    fabric_gossip_interval_ms: float = 1000.0  # <= 0: no gossip membership
+    fabric_suspect_timeout_ms: float = 3000.0
+    fabric_indirect_probes: int = 2
+    fabric_graceful_leave_ms: float = 5000.0
+    fabric_inflight_frames: int = 8  # 0: the synchronous JSON path
+    fabric_wire_v2: bool = True
+    fabric_frame_max_bytes: int = 1 << 20
+    fabric_shm_enabled: bool = False
+    fabric_shm_ring_bytes: int = 1 << 21
+    # fleet observability (obs/fleet.py)
+    fabric_trace_propagation: bool = False
+    fleet_metrics_enabled: bool = False
+    fleet_scrape_timeout_ms: float = 750.0
+    flightrec_fleet_capture: bool = False
     # not YAML keys: the holder sets them
     restart_time: int = 0
     reload_time: int = 0
@@ -352,6 +377,25 @@ _SCALAR_KEYS = {
     "flightrec_min_interval_s": float,
     "flightrec_keep": int,
     "flightrec_provenance_records": int,
+    "fabric_enabled": bool,
+    "fabric_node_id": str,
+    "fabric_listen": str,
+    "fabric_vnodes": int,
+    "fabric_send_timeout_ms": float,
+    "fabric_takeover_grace_ms": float,
+    "fabric_gossip_interval_ms": float,
+    "fabric_suspect_timeout_ms": float,
+    "fabric_indirect_probes": int,
+    "fabric_graceful_leave_ms": float,
+    "fabric_inflight_frames": int,
+    "fabric_wire_v2": bool,
+    "fabric_frame_max_bytes": int,
+    "fabric_shm_enabled": bool,
+    "fabric_shm_ring_bytes": int,
+    "fabric_trace_propagation": bool,
+    "fleet_metrics_enabled": bool,
+    "fleet_scrape_timeout_ms": float,
+    "flightrec_fleet_capture": bool,
 }
 
 _DICT_KEYS = (
@@ -362,7 +406,7 @@ _DICT_KEYS = (
     "password_hash_roaming", "password_persite_cookie_ttl_seconds",
     "use_user_agent_in_cookie", "sites_to_disable_baskerville",
     "sha_inv_path_exceptions", "dnet_to_partition", "sites_to_block_ip_ttl_seconds",
-    "sites_to_block_session_ttl_seconds",
+    "sites_to_block_session_ttl_seconds", "fabric_peers",
 )
 
 # keys the port reads besides the two tables above
@@ -373,16 +417,7 @@ _OTHER_KEYS = (
 
 # the rest of the JAX schema's keys (`banjax_tpu/config/schema.py:504-577`):
 # read there, not here, until their modules are ported
-_NOT_PORTED_KEYS = frozenset((
-    "fabric_enabled", "fabric_frame_max_bytes",
-    "fabric_gossip_interval_ms", "fabric_graceful_leave_ms", "fabric_indirect_probes",
-    "fabric_inflight_frames", "fabric_listen", "fabric_node_id", "fabric_peers",
-    "fabric_send_timeout_ms", "fabric_shm_enabled", "fabric_shm_ring_bytes",
-    "fabric_suspect_timeout_ms", "fabric_takeover_grace_ms",
-    "fabric_trace_propagation", "fabric_vnodes", "fabric_wire_v2",
-    "fleet_metrics_enabled", "fleet_scrape_timeout_ms",
-    "flightrec_fleet_capture", "matcher_backend", "matcher_mesh_rp",
-))
+_NOT_PORTED_KEYS = frozenset(("matcher_backend", "matcher_mesh_rp"))
 
 _PAGES_DIR = Path(__file__).resolve().parent / "httpapi" / "pages"
 
@@ -500,6 +535,7 @@ def config_from_yaml_text(text: str, standalone_testing_default: bool = False) -
         )
     _check_pipeline_keys(cfg)
     _check_obs_keys(cfg)
+    _check_fabric_keys(cfg)
     cfg.not_ported = sorted(k for k in raw if k in _NOT_PORTED_KEYS)
     if cfg.not_ported:
         log.warning("not ported: %s", ", ".join(cfg.not_ported))
@@ -595,6 +631,70 @@ def _check_obs_keys(cfg: Config) -> None:
             "config keys flightrec_keep/flightrec_provenance_records: "
             f"expected >= 1, got {cfg.flightrec_keep}/"
             f"{cfg.flightrec_provenance_records}"
+        )
+
+
+def _check_fabric_keys(cfg: Config) -> None:
+    """The JAX schema's checks of the fabric and fleet keys
+    (`banjax_tpu/config/schema.py:796-865`), with its messages."""
+    if cfg.fabric_vnodes < 1:
+        raise ValueError(f"config key fabric_vnodes: expected >= 1, got {cfg.fabric_vnodes}")
+    if cfg.fabric_send_timeout_ms <= 0 or cfg.fabric_takeover_grace_ms < 0:
+        raise ValueError(
+            "config keys fabric_send_timeout_ms/fabric_takeover_grace_ms: "
+            f"expected positive/non-negative, got {cfg.fabric_send_timeout_ms}"
+            f"/{cfg.fabric_takeover_grace_ms}"
+        )
+    if cfg.fabric_enabled:
+        if not cfg.fabric_node_id or not cfg.fabric_listen:
+            raise ValueError(
+                "config key fabric_enabled: requires fabric_node_id and fabric_listen"
+            )
+        if cfg.fabric_peers and cfg.fabric_node_id not in cfg.fabric_peers:
+            raise ValueError(
+                f"config key fabric_peers: missing this node's own id {cfg.fabric_node_id!r}"
+            )
+    if (cfg.fabric_gossip_interval_ms > 0
+            and cfg.fabric_suspect_timeout_ms <= cfg.fabric_gossip_interval_ms):
+        raise ValueError(
+            "config key fabric_suspect_timeout_ms: must exceed "
+            f"fabric_gossip_interval_ms, got {cfg.fabric_suspect_timeout_ms}"
+            f" <= {cfg.fabric_gossip_interval_ms}"
+        )
+    if cfg.fabric_indirect_probes < 0:
+        raise ValueError(
+            f"config key fabric_indirect_probes: expected >= 0, got {cfg.fabric_indirect_probes}"
+        )
+    if cfg.fabric_graceful_leave_ms < 0:
+        raise ValueError(
+            "config key fabric_graceful_leave_ms: expected >= 0, got "
+            f"{cfg.fabric_graceful_leave_ms}"
+        )
+    if cfg.fabric_inflight_frames < 0:
+        raise ValueError(
+            "config key fabric_inflight_frames: expected >= 0 (0 = "
+            f"synchronous JSON path), got {cfg.fabric_inflight_frames}"
+        )
+    if cfg.fabric_frame_max_bytes < 4096:
+        raise ValueError(
+            f"config key fabric_frame_max_bytes: expected >= 4096, got {cfg.fabric_frame_max_bytes}"
+        )
+    if cfg.fabric_shm_ring_bytes & (cfg.fabric_shm_ring_bytes - 1) or \
+            cfg.fabric_shm_ring_bytes < 4096:
+        raise ValueError(
+            "config key fabric_shm_ring_bytes: expected a power of two "
+            f">= 4096, got {cfg.fabric_shm_ring_bytes}"
+        )
+    if cfg.fabric_shm_enabled and cfg.fabric_shm_ring_bytes <= cfg.fabric_frame_max_bytes:
+        raise ValueError(
+            "config key fabric_shm_ring_bytes: must exceed "
+            "fabric_frame_max_bytes (a frame is ring-written atomically), "
+            f"got {cfg.fabric_shm_ring_bytes} <= {cfg.fabric_frame_max_bytes}"
+        )
+    if cfg.fleet_scrape_timeout_ms <= 0:
+        raise ValueError(
+            "config key fleet_scrape_timeout_ms: expected positive, got "
+            f"{cfg.fleet_scrape_timeout_ms}"
         )
 
 

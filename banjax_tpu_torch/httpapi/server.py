@@ -45,9 +45,14 @@ Multi-process serving (`httpapi/workers.py`): every process binds the
 TCP port with SO_REUSEPORT; the primary also serves this app on a unix
 socket, and a worker serves only the hot routes, reaching the primary
 for the cold ones (its fast server's raw proxy, or the aiohttp reverse
-proxy of `install_proxy_routes` without the fast path). `/metrics`
-has no `?fleet=1` and `/decisions/explain` no cross-shard proxy (the
-fabric is not ported). `run_http_server` takes the port (the reference's
+proxy of `install_proxy_routes` without the fast path). With the
+fabric on, `/metrics` shows its families, `/metrics?fleet=1` serves the
+merged exposition of every alive shard (`obs/fleet.py` FleetScraper; 404
+unless `fleet_metrics_enabled`), and `/decisions/explain` for an IP
+another shard owns is answered by that shard over the peer wire
+(T_EXPLAIN), tagged `owning_node` and `proxied`; an unreachable owner
+gets the local view, flagged `owner_unreachable`. `run_http_server`
+takes the port (the reference's
 8081 by default) so that a test binds port 0. The recovery middleware
 counts every fail-open answer on the app's ServeFastpathStats.
 """
@@ -138,6 +143,36 @@ class ServerDeps:
     ipset_stats: Optional[IpsetStats] = None
     # multi-process serving: the primary's PrimarySupervisor (or None)
     supervisor_getter: Optional[Callable[[], object]] = None
+    # the decision fabric's counters (fabric/stats.py FabricStats), its
+    # fleet scraper (obs/fleet.py, /metrics?fleet=1) and the FabricService
+    # itself (the cross-shard explain proxy); None when the fabric is off
+    fabric_getter: Optional[Callable[[], object]] = None
+    fleet_getter: Optional[Callable[[], object]] = None
+    fabric_service_getter: Optional[Callable[[], object]] = None
+
+
+def explain_payload(dynamic_lists, ip: str) -> dict:
+    """One shard's /decisions/explain answer: the ledger's records of `ip`
+    and its live dynamic-list entry (read without the lazy expiry: an
+    admin read does not mutate). A fabric peer asks for it over T_EXPLAIN."""
+    from banjax_tpu_torch.obs import provenance
+
+    ledger = provenance.get_ledger()
+    active = None
+    ed = dynamic_lists.peek(ip)
+    if ed is not None:
+        active = {
+            "decision": str(ed.decision),
+            "expires": ed.expires,
+            "domain": ed.domain,
+            "from_baskerville": ed.from_baskerville,
+        }
+    return {
+        "ip": ip,
+        "ledger_enabled": ledger.enabled,
+        "records": ledger.explain(ip),
+        "active_decision": active,
+    }
 
 
 _STANDALONE_KEY = "banjax_standalone_hdrs"
@@ -526,6 +561,19 @@ def build_app(deps: ServerDeps, listen_host: str = LISTEN_HOST,
         denied = _admin_denied(request)
         if denied is not None:
             return denied
+        if request.query.get("fleet") in ("1", "true"):
+            scraper = deps.fleet_getter() if deps.fleet_getter else None
+            if scraper is None:
+                return web.json_response(
+                    {"error": "fleet metrics disabled "
+                              "(fleet_metrics_enabled + fabric required)"},
+                    status=404,
+                )
+            # the peer pulls are blocking socket I/O: off the event loop;
+            # a peer's failure degrades inside scrape(), never a 500
+            text = await asyncio.get_running_loop().run_in_executor(None, scraper.scrape)
+            return web.Response(text=text, content_type="text/plain", charset="utf-8",
+                                headers={"X-Prometheus-Exposition-Version": "0.0.4"})
         from banjax_tpu_torch.obs.exposition import render_prometheus
 
         text = render_prometheus(
@@ -538,6 +586,7 @@ def build_app(deps: ServerDeps, listen_host: str = LISTEN_HOST,
             serve_stats=deps.serve_stats,
             ipset_stats=deps.ipset_stats,
             supervisor=deps.supervisor_getter() if deps.supervisor_getter else None,
+            fabric=deps.fabric_getter() if deps.fabric_getter else None,
         )
         return web.Response(text=text, content_type="text/plain", charset="utf-8",
                             headers={"X-Prometheus-Exposition-Version": "0.0.4"})
@@ -557,31 +606,37 @@ def build_app(deps: ServerDeps, listen_host: str = LISTEN_HOST,
 
     async def decisions_explain_route(request: web.Request) -> web.Response:
         """Every ledger record of one IP, and its live dynamic-list entry
-        (read without the lazy expiry: an admin read does not mutate)."""
+        (read without the lazy expiry: an admin read does not mutate).
+        With the fabric on, an IP another shard owns is explained by that
+        shard (its ledger holds the records)."""
         denied = _admin_denied(request)
         if denied is not None:
             return denied
         ip = request.query.get("ip", "")
         if not ip:
             return web.json_response({"error": "ip query param is required"}, status=400)
-        from banjax_tpu_torch.obs import provenance
-
-        ledger = provenance.get_ledger()
-        active = None
-        ed = deps.dynamic_lists.peek(ip)
-        if ed is not None:
-            active = {
-                "decision": str(ed.decision),
-                "expires": ed.expires,
-                "domain": ed.domain,
-                "from_baskerville": ed.from_baskerville,
-            }
-        return web.json_response({
-            "ip": ip,
-            "ledger_enabled": ledger.enabled,
-            "records": ledger.explain(ip),
-            "active_decision": active,
-        })
+        owner_unreachable = None
+        svc = deps.fabric_service_getter() if deps.fabric_service_getter else None
+        if svc is not None:
+            try:
+                owner = svc.router.owner_of(ip)
+            except Exception:  # noqa: BLE001 — no owner: answered locally
+                owner = None
+            if owner is not None and owner != svc.node_id:
+                try:
+                    payload = await asyncio.get_running_loop().run_in_executor(
+                        None, svc.explain_remote, owner, ip)
+                    payload["owning_node"] = owner
+                    payload["proxied"] = True
+                    return web.json_response(payload)
+                except Exception:  # noqa: BLE001 — the local, partial view, flagged
+                    owner_unreachable = owner
+        out = explain_payload(deps.dynamic_lists, ip)
+        if svc is not None:
+            out["node_id"] = svc.node_id
+        if owner_unreachable is not None:
+            out["owner_unreachable"] = owner_unreachable
+        return web.json_response(out)
 
     async def traffic_top_route(request: web.Request) -> web.Response:
         """The traffic sketch's top-K heavy hitters, distinct-IP estimate

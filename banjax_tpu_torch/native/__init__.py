@@ -52,10 +52,12 @@ FASTPARSE = HostLibrary("fastparse", "fastparse.c", {
 
 def libraries() -> List[HostLibrary]:
     """The host libraries: the matcher's host tier (parse, slot manager,
-    warm tier) and the serving fast path's decision table."""
-    from banjax_tpu_torch.native import decisiontable, shm, slotmgr
+    warm tier), the serving fast path's decision table and the fabric's
+    shm ring."""
+    from banjax_tpu_torch.native import decisiontable, shm, shmring, slotmgr
 
-    return [FASTPARSE, slotmgr.SLOTMGR, shm.SHMSTATE, decisiontable.DECISIONTABLE]
+    return [FASTPARSE, slotmgr.SLOTMGR, shm.SHMSTATE, decisiontable.DECISIONTABLE,
+            shmring.SHMRING]
 
 
 def _P(a: np.ndarray, t):

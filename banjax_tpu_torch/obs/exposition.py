@@ -13,8 +13,11 @@ bytes_total`).
 Every family is declared in `obs/registry.py`; the renderer walks the
 registry, so an undeclared family cannot be emitted. The serving and
 kernel-edge counters are the app's (`serve_stats`, `ipset_stats`); the
-worker families show when a supervisor runs. Not ported: the JAX
-exposition's fabric, fleet and scenario families.
+worker families show when a supervisor runs; the fabric families
+(scalars, per-peer gauges and the takeover, detection, frame-size and ack
+RTT histograms) when a fabric runs. The federated `/metrics?fleet=1`
+payload is `obs/fleet.py`'s merge of such texts. Not ported: the JAX
+exposition's scenario families.
 
 `parse_text_format()` is the strict parser the tests use: name and
 label syntax, HELP/TYPE placement, histogram bucket monotonicity and
@@ -102,6 +105,7 @@ def render_prometheus(
     serve_stats=None,
     ipset_stats=None,
     supervisor=None,
+    fabric=None,
 ) -> str:
     """The whole /metrics payload from the sources the metrics line reads
     (`obs/metrics.write_metrics_line`), through non-destructive reads."""
@@ -116,6 +120,8 @@ def render_prometheus(
     if pipeline is not None:
         values.update(pipeline.prom_snapshot())
     values["KafkaSkippedBatches"] = kafka_wire.skipped_batch_count()
+    if fabric is not None:
+        values.update(fabric.peek())
     if supervisor is not None:
         values["HttpWorkers"] = supervisor.n_workers
         values["HttpWorkerRespawns"] = supervisor.respawn_count
@@ -223,6 +229,38 @@ def render_prometheus(
         w.sample(registry.PROM_FAMILIES["banjax_ipset_queue_shed_total"],
                  snap["queue_shed_total"])
         w.sample(registry.PROM_FAMILIES["banjax_ipset_queue_depth"], snap["queue_depth"])
+
+    # the fabric: per-peer liveness and membership gauges, the wire's
+    # frames by version and transport, the fleet health bits, and the
+    # takeover, detection, frame-size and ack RTT histograms
+    if fabric is not None:
+        peers = fabric.peers_snapshot()
+        if peers:
+            fam = registry.PROM_FAMILIES["banjax_fabric_peer_up"]
+            for pid, up in sorted(peers.items()):
+                w.sample(fam, 1 if up else 0, {"peer": pid})
+        w.histogram(registry.PROM_FAMILIES["banjax_fabric_takeover_duration_seconds"],
+                    fabric.takeover_duration)
+        states = fabric.member_states_snapshot()
+        if states:
+            fam = registry.PROM_FAMILIES["banjax_fabric_membership_state"]
+            enc = {"alive": 0, "suspect": 1, "dead": 2, "left": 3}
+            for pid, state in sorted(states.items()):
+                w.sample(fam, enc.get(state, 2), {"peer": pid})
+        w.histogram(registry.PROM_FAMILIES["banjax_fabric_membership_detection_seconds"],
+                    fabric.detection_time)
+        frames = fabric.frames_snapshot()
+        if frames:
+            fam = registry.PROM_FAMILIES["banjax_fabric_frames_total"]
+            for (version, transport), n in sorted(frames.items()):
+                w.sample(fam, n, {"version": version, "transport": transport})
+        w.histogram(registry.PROM_FAMILIES["banjax_fabric_frame_bytes"], fabric.frame_bytes)
+        w.histogram(registry.PROM_FAMILIES["banjax_fabric_ack_rtt_seconds"], fabric.ack_rtt)
+        peer_health = fabric.peer_health_snapshot()
+        if peer_health:
+            fam = registry.PROM_FAMILIES["banjax_fabric_peer_health"]
+            for nid, bits in sorted(peer_health.items()):
+                w.sample(fam, bits, {"node": nid})
 
     # component health: the aggregate and one labeled gauge a component
     if health is not None:

@@ -10,14 +10,19 @@ it writes an incident bundle to `flightrec_dir`:
         metrics.prom      the full /metrics text (parseable by
                           obs/exposition.parse_text_format)
         traffic.json      the traffic sketch, pulled at the incident
+        fabric.json       the fabric's peer table, ownership and last
+                          takeover (when the fabric runs)
         provenance.json   the last N provenance records
         meta.json         reason, detail, timestamps, config hash,
                           health, SLO burn state
+        peers/<node>/     each alive fabric peer's trace, metrics,
+                          provenance and fabric files (with
+                          `flightrec_fleet_capture`)
 
 A bundle is written into a hidden `.tmp` directory and renamed into
 place, so a listed incident is complete; the newest `flightrec_keep` are
-kept. `GET /debug/incidents` lists and serves them. The JAX recorder's
-fabric snapshot and fleet capture wait for the fabric.
+kept. `GET /debug/incidents` lists and serves them, the peer files
+included.
 
 Trigger sites call the module-level `notify(reason, detail)`: one
 None-check when no recorder is installed. Capture is synchronous,
@@ -59,6 +64,8 @@ class FlightRecorder:
         health=None,
         slo_getter: Optional[Callable[[], object]] = None,
         traffic_fn: Optional[Callable[[], Optional[dict]]] = None,
+        fabric_fn: Optional[Callable[[], Optional[dict]]] = None,
+        fleet_capture_fn: Optional[Callable[[str], "dict[str, dict[str, str]]"]] = None,
         clock: Callable[[], float] = time.monotonic,
     ):
         self.directory = directory
@@ -70,6 +77,8 @@ class FlightRecorder:
         self._health = health
         self._slo_getter = slo_getter
         self._traffic_fn = traffic_fn
+        self._fabric_fn = fabric_fn
+        self._fleet_capture_fn = fleet_capture_fn
         self._clock = clock
         self._lock = threading.Lock()
         self._last_capture = float("-inf")
@@ -126,6 +135,18 @@ class FlightRecorder:
             traffic if traffic is not None else {"enabled": False},
             indent=1,
         )
+        # the fabric's snapshot: a shard-failure capture describes itself
+        # without asking the survivors
+        if self._fabric_fn is not None:
+            fabric: Optional[dict] = None
+            try:
+                fabric = self._fabric_fn()
+            except Exception as e:  # noqa: BLE001 — partial bundle beats none
+                fabric = {"enabled": False, "error": str(e)}
+            files["fabric.json"] = json.dumps(
+                fabric if fabric is not None else {"enabled": False},
+                indent=1, default=str,
+            )
         files["provenance.json"] = json.dumps(
             {
                 "records": provenance.get_ledger().tail(self.provenance_tail),
@@ -138,6 +159,27 @@ class FlightRecorder:
             },
             indent=1,
         )
+        # the cluster capture (obs/fleet.py capture_fleet): every alive
+        # peer's snapshot under peers/<node_id>/, fanned out before
+        # meta.json so the manifest lists it; a peer that cannot answer
+        # leaves an error.txt
+        peer_files: dict = {}
+        if self._fleet_capture_fn is not None:
+            try:
+                raw = self._fleet_capture_fn(name) or {}
+            except Exception:  # noqa: BLE001 — fleet capture must not sink the bundle
+                raw = {}
+            for nid, pf in raw.items():
+                nid_s = os.path.basename(str(nid))
+                if not nid_s or nid_s.startswith("."):
+                    continue
+                clean = {}
+                for fname, content in (pf or {}).items():
+                    fname_s = os.path.basename(str(fname))
+                    if fname_s and not fname_s.startswith("."):
+                        clean[fname_s] = str(content)
+                if clean:
+                    peer_files[nid_s] = clean
         slo = self._slo_getter() if self._slo_getter else None
         meta = {
             "reason": reason,
@@ -149,13 +191,21 @@ class FlightRecorder:
             ),
             "health": self._health.snapshot() if self._health else None,
             "slo": slo.snapshot() if slo is not None else None,
-            "files": sorted(files) + ["meta.json"],
+            "files": sorted(files) + ["meta.json"] + sorted(
+                f"peers/{nid}/{fname}" for nid, pf in peer_files.items() for fname in pf
+            ),
         }
         files["meta.json"] = json.dumps(meta, indent=1)
 
         for fname, content in files.items():
             with open(os.path.join(tmp, fname), "w", encoding="utf-8") as f:
                 f.write(content)
+        for nid, pf in peer_files.items():
+            pdir = os.path.join(tmp, "peers", nid)
+            os.makedirs(pdir, exist_ok=True)
+            for fname, content in pf.items():
+                with open(os.path.join(pdir, fname), "w", encoding="utf-8") as f:
+                    f.write(content)
         os.rename(tmp, final)  # atomic publish: listed == complete
         with self._lock:
             self.incident_count += 1
@@ -219,13 +269,20 @@ class FlightRecorder:
         return out
 
     def read_file(self, name: str, fname: str) -> Optional[bytes]:
-        """One bundle file's bytes; None when absent. Both names are
-        validated: no path traversal."""
+        """One bundle file's bytes; None when absent. `fname` is a bundle
+        file or a fleet capture path `peers/<node_id>/<file>`; every
+        component is validated: no path traversal."""
         if name != os.path.basename(name) or not name.startswith("incident-"):
             return None
-        if (not fname or fname != os.path.basename(fname)
-                or fname in (".", "..") or fname.startswith(".")):
+        parts = fname.split("/")
+        if len(parts) == 3 and parts[0] == "peers":
+            parts = parts[1:]
+        elif len(parts) != 1:
             return None
+        for part in parts:
+            if (not part or part != os.path.basename(part)
+                    or part in (".", "..") or part.startswith(".")):
+                return None
         path = os.path.join(self.directory, name, fname)
         try:
             with open(path, "rb") as f:

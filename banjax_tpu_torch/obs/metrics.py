@@ -16,8 +16,8 @@ traffic sketch is read through its throttled `pull`. The serving and
 kernel-edge counters belong to the app (`serve_stats`, `ipset_stats`),
 not to process-wide singletons. `KafkaSkippedBatches` shows only when
 nonzero (the wire client's module count), and the multi-process worker
-keys only when a supervisor runs, as in JAX. Not ported: the JAX line's
-fabric keys.
+keys only when a supervisor runs, as in JAX; the fabric's keys
+(`fabric/stats.py` `FabricStats.peek`) when a fabric runs.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ def write_metrics_line(
     serve_stats=None,
     ipset_stats=None,
     supervisor=None,
+    fabric=None,
 ) -> None:
     challenges, blocks = dynamic_lists.metrics()
     line = {
@@ -57,6 +58,9 @@ def write_metrics_line(
         line.update(matcher.stats.snapshot(getattr(matcher, "device_windows", None), matcher))
     if pipeline is not None:
         line.update(pipeline.snapshot())
+    if fabric is not None:
+        # routed, forwarded and shed line counts, replication and takeovers
+        line.update(fabric.peek())
     # the challenge plane: present once this process touched it, so the
     # reference's exact key set holds otherwise
     chal = challenge_stats()
@@ -118,6 +122,7 @@ class MetricsReporter:
         serve_stats=None,
         ipset_stats=None,
         supervisor_getter: Optional[Callable[[], object]] = None,
+        fabric_getter: Optional[Callable[[], object]] = None,
     ):
         self.log_path = log_path
         self.dynamic_lists = dynamic_lists
@@ -130,6 +135,7 @@ class MetricsReporter:
         self.serve_stats = serve_stats
         self.ipset_stats = ipset_stats
         self.supervisor_getter = supervisor_getter
+        self.fabric_getter = fabric_getter
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -155,4 +161,5 @@ class MetricsReporter:
                     self.pipeline_getter() if self.pipeline_getter else None,
                     self.serve_stats, self.ipset_stats,
                     self.supervisor_getter() if self.supervisor_getter else None,
+                    self.fabric_getter() if self.fabric_getter else None,
                 )

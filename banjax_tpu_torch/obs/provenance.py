@@ -5,8 +5,8 @@ Every decision insertion, and every expiry, appends one fixed-size
 record into a lock-cheap per-source ring, queryable by IP through
 `GET /decisions/explain?ip=...`. The sources are the reference's:
 static config lists, UA lists, the regex rate limiter, Kafka commands
-(not ported: no record comes from there) and repeated challenge
-failures, plus the ledger-only `expiry`.
+(`ingest/kafka_io.py`, replicated fabric decisions included) and
+repeated challenge failures, plus the ledger-only `expiry`.
 
   * **Off = free.** `provenance_enabled` gates every record path on one
     attribute check. On is the default: records fire on decision events
@@ -21,15 +21,18 @@ failures, plus the ledger-only `expiry`.
 Record fields (one tuple an insertion): ip, decision (its string),
 source, rule name, rule index, window hit count at fire, trace id of the
 admitting batch (the ambient span's, when the insert happens on a traced
-drain thread), monotonic and wall timestamps. The JAX ledger's fleet
-fields (origin node, origin trace id) wait for the fabric.
+drain thread), monotonic and wall timestamps, and the fleet fields:
+the origin node and origin trace id of a line another fabric shard
+tailed and forwarded here, resolved at record time through the
+installed origin resolver (`set_origin_resolver`, the fabric's
+`obs/fleet.py` OriginIndex); `explain()` shows them when set.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from banjax_tpu_torch.obs import trace
 
@@ -86,8 +89,17 @@ class ProvenanceLedger:
         if trace_id is None:
             trace_id = trace.current_trace_id()
         decision_s = str(decision)
+        origin_node, origin_trace = "", 0
+        resolver = _origin_resolver
+        if resolver is not None:
+            try:
+                origin = resolver(ip)
+                if origin:
+                    origin_node, origin_trace = str(origin[0]), int(origin[1])
+            except Exception:  # noqa: BLE001 — resolution must never break a record path
+                pass
         rec = (ip, decision_s, source, rule, int(rule_index), hits,
-               int(trace_id), time.monotonic(), time.time())
+               int(trace_id), time.monotonic(), time.time(), origin_node, origin_trace)
         with self._locks[source]:
             n = self._ns[source]
             self._rings[source][n % self.ring_size] = rec
@@ -112,8 +124,9 @@ class ProvenanceLedger:
 
     @staticmethod
     def _to_dict(rec: tuple) -> dict:
-        ip, decision, source, rule, rule_index, hits, tid, t_mono, t_wall = rec
-        return {
+        (ip, decision, source, rule, rule_index, hits, tid, t_mono, t_wall,
+         origin_node, origin_trace) = rec
+        out = {
             "ip": ip,
             "decision": decision,
             "source": source,
@@ -124,6 +137,10 @@ class ProvenanceLedger:
             "t_monotonic": round(t_mono, 6),
             "time_unix": round(t_wall, 6),
         }
+        if origin_node:
+            out["origin_node"] = origin_node
+            out["origin_trace_id"] = origin_trace
+        return out
 
     def explain(self, ip: str) -> List[dict]:
         """The ledger's history of one IP across every source, oldest
@@ -155,6 +172,15 @@ class ProvenanceLedger:
 # ---- the process-wide ledger ----------------------------------------------
 
 _ledger = ProvenanceLedger(enabled=True)
+
+# ip -> (origin node id, origin trace id) or None: installed by the fabric
+# (obs/fleet.py OriginIndex.resolve); it outlives a configure() swap
+_origin_resolver: Optional[Callable[[str], Optional[Tuple[str, int]]]] = None
+
+
+def set_origin_resolver(fn: Optional[Callable[[str], Optional[Tuple[str, int]]]]) -> None:
+    global _origin_resolver
+    _origin_resolver = fn
 
 
 def get_ledger() -> ProvenanceLedger:

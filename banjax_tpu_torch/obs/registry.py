@@ -14,7 +14,7 @@ the port unchanged. Two namespaces share one declaration:
     (`obs/exposition.py`). Interval-window keys are line-only.
 
 Not declared: the families of modules the port does not have (the
-fabric, fleet observability, the scenario harness, the mesh), and the keys whose meaning in the port would differ
+scenario harness, the mesh), and the keys whose meaning in the port would differ
 from the JAX key's: `MatcherCpuFallbackBatches` (an open breaker refuses,
 it never reroutes to the host), `MatcherBudgetTrips` (a budget breach is
 counted but is no breaker failure), the transfer-byte keys
@@ -52,6 +52,14 @@ REFERENCE_LINE_KEYS = (
 LATENCY_BUCKETS_S = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
     0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+
+
+# fixed size buckets (bytes) for wire-frame histograms: a single small
+# control frame through a maximally coalesced fabric_frame_max_bytes blob
+FRAME_BYTES_BUCKETS = (
+    256.0, 1024.0, 4096.0, 16384.0, 65536.0,
+    262144.0, 1048576.0, 4194304.0,
 )
 
 
@@ -223,6 +231,112 @@ FAMILIES: List[Family] = [
            "rule — which rules absorb the flood",
            prom="banjax_traffic_rule_pressure",
            labels=("rule",)),
+    # ---- multi-host decision fabric (fabric/) ----
+    Family(GAUGE, "1 when the labeled fabric peer is alive in this "
+           "node's membership view, 0 after it is declared dead",
+           prom="banjax_fabric_peer_up", labels=("peer",)),
+    Family(COUNTER, "lines forwarded to an owning peer and acked",
+           line_key="FabricForwardedLines",
+           prom="banjax_fabric_forwarded_lines_total"),
+    Family(COUNTER, "lines received over the wire from a fabric peer",
+           line_key="FabricReceivedLines",
+           prom="banjax_fabric_received_lines_total"),
+    Family(COUNTER, "lines owned locally and submitted in-process",
+           line_key="FabricLocalLines",
+           prom="banjax_fabric_local_lines_total"),
+    Family(COUNTER, "lines with no alive owner — counted shed, never "
+           "silently lost (the fabric half of admitted == processed + "
+           "shed)", line_key="FabricShedLines",
+           prom="banjax_fabric_shed_lines_total"),
+    Family(COUNTER, "journal lines replayed to takeover successors "
+           "after a peer death",
+           line_key="FabricReplayedLines",
+           prom="banjax_fabric_replayed_lines_total"),
+    Family(COUNTER, "decisions produced to the Kafka command topic for "
+           "fabric-wide replication",
+           line_key="FabricReplicatedDecisions",
+           prom="banjax_fabric_replicated_decisions_total"),
+    Family(COUNTER, "replication produce attempts that failed (retried "
+           "once, then counted and dropped — the local decision holds)",
+           line_key="FabricReplicationErrors",
+           prom="banjax_fabric_replication_errors_total"),
+    Family(COUNTER, "replicated commands suppressed by the (origin, seq) "
+           "deduper — own-origin echoes and duplicate inserts",
+           line_key="FabricDuplicatesSuppressed",
+           prom="banjax_fabric_duplicate_suppressed_total"),
+    Family(COUNTER, "replicated peer decisions applied to the local "
+           "dynamic lists",
+           line_key="FabricReplicatedApplied",
+           prom="banjax_fabric_replicated_applied_total"),
+    Family(COUNTER, "range takeovers completed after a peer death",
+           line_key="FabricTakeovers",
+           prom="banjax_fabric_takeovers_total"),
+    Family(HISTOGRAM, "takeover duration: peer declared dead -> journal "
+           "fully replayed (s)",
+           prom="banjax_fabric_takeover_duration_seconds"),
+    Family(GAUGE, "gossip membership state of the labeled peer in this "
+           "node's view (0=alive 1=suspect 2=dead 3=left)",
+           prom="banjax_fabric_membership_state", labels=("peer",)),
+    Family(COUNTER, "alive -> suspect transitions observed (direct + "
+           "indirect probes all failed, or a suspicion digest arrived)",
+           line_key="FabricMembershipSuspects",
+           prom="banjax_fabric_membership_suspects_total"),
+    Family(COUNTER, "suspicions that expired into confirmed-dead "
+           "(drives mark_dead -> journal-replay takeover)",
+           line_key="FabricMembershipConfirmedDead",
+           prom="banjax_fabric_membership_confirmed_dead_total"),
+    Family(COUNTER, "suspicions refuted by liveness evidence or an "
+           "incarnation-bumped ALIVE from the suspect itself",
+           line_key="FabricMembershipRefuted",
+           prom="banjax_fabric_membership_refuted_total"),
+    Family(COUNTER, "members joined or revived in this node's view "
+           "(gossip join announce, rejoin, refute-after-dead)",
+           line_key="FabricMembershipJoined",
+           prom="banjax_fabric_membership_joined_total"),
+    Family(COUNTER, "graceful LEFT departures observed (journal cleared "
+           "without replay — the leaver drained first)",
+           line_key="FabricMembershipLeft",
+           prom="banjax_fabric_membership_left_total"),
+    Family(COUNTER, "bytes of dedicated gossip probe traffic sent "
+           "(digest piggybacks on data-path acks ride free)",
+           line_key="FabricGossipBytes",
+           prom="banjax_fabric_gossip_bytes_total"),
+    Family(HISTOGRAM, "failure-detection latency: last liveness evidence "
+           "for a member -> its death confirmed in this node's view (s)",
+           prom="banjax_fabric_membership_detection_seconds"),
+    # ---- fabric wire v2 transport (fabric/peer.py LinePipe) ----
+    Family(COUNTER, "data-path frames sent to peers, by negotiated wire "
+           "version (v2 binary / json fallback) and transport (tcp / shm)",
+           prom="banjax_fabric_frames_total",
+           labels=("version", "transport")),
+    Family(COUNTER, "total data-path frames sent (all versions/transports "
+           "— the 29s-line scalar of banjax_fabric_frames_total)",
+           line_key="FabricFramesSent"),
+    Family(COUNTER, "total data-path frame bytes sent to peers",
+           line_key="FabricFrameBytes"),
+    Family(HISTOGRAM, "size of each data-path frame sent (bytes) — how "
+           "well send-side coalescing packs routed groups",
+           prom="banjax_fabric_frame_bytes"),
+    Family(COUNTER, "data-path acks received from peers (frames retired "
+           "from the sliding window)",
+           line_key="FabricAcksReceived",
+           prom="banjax_fabric_acks_total"),
+    Family(GAUGE, "frames currently in flight across all peer windows "
+           "(bounded by fabric_inflight_frames per peer)",
+           line_key="FabricInflightFrames",
+           prom="banjax_fabric_inflight_frames"),
+    Family(HISTOGRAM, "frame send -> ack round trip (s) through the "
+           "pipelined window",
+           prom="banjax_fabric_ack_rtt_seconds"),
+    Family(GAUGE, "worst unread-byte fraction across this node's shm "
+           "peer rings (0 when no ring transport is attached)",
+           line_key="FabricRingOccupancy",
+           prom="banjax_fabric_ring_occupancy"),
+    Family(COUNTER, "takeover-replay lines skipped because their "
+           "pre-death owner is still alive (already processed once — "
+           "replaying would double-count rate-limit hits)",
+           line_key="FabricReplaySkippedLines",
+           prom="banjax_fabric_replay_skipped_lines_total"),
     Family(COUNTER, "lines+commands admitted into the pipeline",
            line_key="PipelineAdmittedLines",
            prom="banjax_pipeline_admitted_lines_total"),
@@ -384,6 +498,19 @@ FAMILIES: List[Family] = [
            prom="banjax_ipset_queue_shed_total"),
     Family(GAUGE, "bans waiting in the netlink batch queue",
            prom="banjax_ipset_queue_depth"),
+    # ---- fleet observability plane (obs/fleet.py) ----
+    Family(GAUGE, "gossip-piggybacked health bits of the labeled fleet "
+           "node (bit 1 slo_breached, bit 2 breaker open, bit 4 breaker "
+           "half-open; 0 = healthy)",
+           prom="banjax_fabric_peer_health", labels=("node",)),
+    Family(GAUGE, "1 when the labeled peer could not be reached by the "
+           "last /metrics?fleet=1 fan-out (its samples come from the "
+           "stale cache or are absent — partial-but-honest view)",
+           prom="banjax_fleet_peer_unreachable", labels=("instance",)),
+    Family(GAUGE, "age (s) of the labeled peer's snapshot in the merged "
+           "fleet exposition (near zero for a live pull)",
+           prom="banjax_fleet_peer_staleness_seconds",
+           labels=("instance",)),
     Family(HISTOGRAM, "tailer read -> effector commit end-to-end latency (s), by hop "
            "(local = owned by the tailing node, fabric = forwarded to its "
            "owner over the wire)",

@@ -25,8 +25,10 @@ Declared SLOs (config keys in parentheses):
 Every input is a non-destructive cumulative read (`peek()`-style), so the
 engine samples at any cadence beside the 29 s line and any scraper; none
 of them touches the card. On a breach transition the engine fires
-`on_breach` (cli.BanjaxApp wires it to the flight recorder). The JAX
-engine's fleet collector waits for the fabric.
+`on_breach` (cli.BanjaxApp wires it to the flight recorder). In fleet
+mode (`collect_fn`, `obs/fleet.py` `FleetScraper.fleet_collect`) the
+engine burns the cluster's counter sums from the last federated scrape
+with the same window mechanics.
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ class SloEngine:
         on_breach: Optional[Callable[[str, dict], None]] = None,
         clock: Callable[[], float] = time.monotonic,
         max_samples: int = 512,
+        collect_fn: Optional[Callable[[], Dict[str, float]]] = None,
     ):
         if not 0.0 < batch_latency_target < 1.0:
             raise ValueError(
@@ -92,6 +95,7 @@ class SloEngine:
         self._matcher_getter = matcher_getter
         self._pipeline_getter = pipeline_getter
         self._batch_budget_s_fn = batch_budget_s_fn
+        self._collect_fn = collect_fn
         self.batch_latency_target = batch_latency_target
         self.shed_ratio_max = shed_ratio_max
         self.stale_ratio_max = stale_ratio_max
@@ -131,6 +135,12 @@ class SloEngine:
     # ---- collection (non-destructive reads only) ----
 
     def _collect(self) -> Dict[str, float]:
+        # fleet mode: the injected collector replaces the local getters
+        if self._collect_fn is not None:
+            try:
+                return {k: float(v) for k, v in (self._collect_fn() or {}).items()}
+            except Exception:  # noqa: BLE001 — a collector bug must not stop sampling
+                return {}
         vals: Dict[str, float] = {}
         matcher = self._matcher_getter() if self._matcher_getter else None
         if matcher is not None:

@@ -207,7 +207,7 @@ class PipelineStats:
         # fixed-bucket distributions for /metrics
         self.device_latency_hist = Histogram()
         self.stage_hists = StageHistograms()
-        self.e2e_hists = StageHistograms()  # by hop: "local" (no fabric)
+        self.e2e_hists = StageHistograms()  # by hop: "local" or "fabric"
         # busy seconds per stage thread and per encode worker
         self.stage_seconds: Dict[str, float] = defaultdict(float)
         self.worker_seconds: List[float] = []
@@ -319,9 +319,11 @@ class PipelineStats:
             for stage, ms in stage_ms.items():
                 self.stage_seconds[stage] += ms / 1e3
 
-    def observe_e2e(self, seconds: float) -> None:
-        """One batch's oldest tailer-read stamp -> effector commit."""
-        self.e2e_hists.observe("local", max(0.0, seconds))
+    def observe_e2e(self, hop: str, seconds: float) -> None:
+        """One batch's oldest tailer-read stamp of one hop -> effector
+        commit (banjax_e2e_latency_seconds{hop}; the percentiles ring
+        takes every hop)."""
+        self.e2e_hists.observe(hop, max(0.0, seconds))
         with self._lock:
             self._e2e.append(max(0.0, seconds))
 

@@ -57,8 +57,8 @@ closes, without traffic.
 
 Commands: submit_commands() admits items into the same buffer as tailer
 lines, with the same bound and accounting, and the drain thread runs
-each handler in admission order (the Kafka reader that feeds this lane in
-the JAX package is not ported).
+each handler in admission order (the Kafka reader feeds this lane under
+`pipeline_kafka`).
 
 Tracing (`obs/trace.py`, off by default): a batch gets its trace id at
 take-time and a root `admission` span that rides it to the drain; the
@@ -114,7 +114,7 @@ def _bind(matcher) -> None:
 
 class _Batch:
     __slots__ = ("lines", "matcher", "state", "t_encode_ms", "t_device_ms",
-                 "t0_device", "kind", "t_read", "drained", "recovered", "trace_id",
+                 "t0_device", "kind", "e2e", "drained", "recovered", "trace_id",
                  "root_span")
 
     def __init__(self, lines: list, kind: str = "lines"):
@@ -125,8 +125,9 @@ class _Batch:
         self.t_device_ms = 0.0
         self.t0_device = 0.0
         self.kind = kind
-        # the oldest tailer-read monotonic stamp of the lines it took
-        self.t_read: Optional[float] = None
+        # {hop: oldest tailer-read monotonic stamp} of the lines it took
+        # ("local": tailed here, "fabric": forwarded by a fabric peer)
+        self.e2e: dict = {}
         self.drained: Optional[threading.Event] = None  # set for a barrier batch
         # its device stage failed after a commit: it drains through
         # pipeline_finish, which finishes what was not committed
@@ -189,9 +190,8 @@ class PipelineScheduler:
         )
         self.stats = PipelineStats()
         self._buf: deque = deque()
-        # read stamps parallel to the LINE items in _buf: [count, t_read]
-        # per admitted chunk, trimmed in lockstep by sheds and takes (the
-        # JAX scheduler's per-hop stamps have one hop here: no fabric)
+        # read stamps parallel to the LINE items in _buf: [count, t_read,
+        # hop] per admitted chunk, trimmed in lockstep by sheds and takes
         self._marks: deque = deque()
         self._cond = threading.Condition()
         self._inflight = 0
@@ -285,18 +285,22 @@ class PipelineScheduler:
 
     # ---- admission (tailer thread) ----
 
-    def submit(self, lines: Sequence[str], t_read: Optional[float] = None) -> None:
+    def submit(self, lines: Sequence[str], t_read: Optional[float] = None,
+               hop: str = "local") -> None:
         """Admit a chunk of log lines. Blocks for at most
         `pipeline_max_block_ms` when the buffer is full, then sheds
-        oldest-first. `t_read` is the tailer-read monotonic stamp."""
-        self._admit(list(lines), t_read=t_read, marked=True)
+        oldest-first. `t_read` is the tailer-read monotonic stamp and
+        `hop` whether the chunk was tailed here ("local") or arrived
+        from a fabric peer ("fabric"): both key the
+        banjax_e2e_latency_seconds{hop} histogram at drain time."""
+        self._admit(list(lines), t_read=t_read, hop=hop)
 
     def submit_commands(self, raws: Sequence[bytes],
                         handler: Callable[[bytes], None]) -> None:
         """Admit commands into the same buffer as tailer lines (the same
         bound, shed and accounting); the drain stage runs `handler(raw)`
         for each in admission order."""
-        self._admit([_Command(r, handler) for r in raws], marked=False)
+        self._admit([_Command(r, handler) for r in raws], hop=None)
 
     def _mark_drop_locked(self) -> None:
         if not self._marks:
@@ -306,22 +310,23 @@ class PipelineScheduler:
         if m[0] <= 0:
             self._marks.popleft()
 
-    def _take_marks_locked(self, n: int) -> Optional[float]:
+    def _take_marks_locked(self, n: int) -> dict:
         """Consume the marks of `n` line items taken off the buffer head;
-        returns the oldest stamp among them."""
-        out: Optional[float] = None
+        returns {hop: oldest stamp} over the stamped ones."""
+        out: dict = {}
         while n > 0 and self._marks:
             m = self._marks[0]
             took = min(n, m[0])
-            if m[1] is not None and (out is None or m[1] < out):
-                out = m[1]
+            if m[1] is not None and (m[2] not in out or m[1] < out[m[2]]):
+                out[m[2]] = m[1]
             m[0] -= took
             n -= took
             if m[0] <= 0:
                 self._marks.popleft()
         return out
 
-    def _admit(self, lines: list, t_read: Optional[float] = None, marked: bool = True) -> None:
+    def _admit(self, lines: list, t_read: Optional[float] = None,
+               hop: Optional[str] = "local") -> None:
         if not lines:
             return
         self.stats.note_admitted(len(lines))
@@ -360,8 +365,8 @@ class PipelineScheduler:
                 shed_burst = dropped
             was_empty = not self._buf
             self._buf.extend(lines)
-            if marked and lines:
-                self._marks.append([len(lines), t_read])
+            if hop is not None and lines:
+                self._marks.append([len(lines), t_read, hop])
             if was_empty:
                 # the encode thread sleeps only on an empty buffer
                 self._cond.notify_all()
@@ -410,7 +415,7 @@ class PipelineScheduler:
                         and isinstance(self._buf[0], _Command) == is_cmd
                     ):
                         lines.append(self._buf.popleft())
-                    t_read = self._take_marks_locked(len(lines)) if lines and not is_cmd else None
+                    e2e = self._take_marks_locked(len(lines)) if lines and not is_cmd else {}
                     if lines:
                         self._inflight += 1
                         self.stats.note_inflight(self._inflight)
@@ -419,7 +424,7 @@ class PipelineScheduler:
                     self._ring.release()
                     continue
                 batch = _Batch(lines, kind="cmd" if is_cmd else "lines")
-                batch.t_read = t_read
+                batch.e2e = e2e
                 batch.matcher = matcher
                 if trace.enabled():
                     batch.trace_id = trace.new_trace()
@@ -669,8 +674,9 @@ class PipelineScheduler:
                         self._health.degraded(f"drain failure; {n} lines counted as failed")
             if ok:
                 self.stats.note_processed(n)
-                if batch.t_read is not None:
-                    self.stats.observe_e2e(time.monotonic() - batch.t_read)
+                now_mono = time.monotonic()
+                for hop, t_read in batch.e2e.items():
+                    self.stats.observe_e2e(hop, now_mono - t_read)
                 if self._health is not None:
                     self._health.ok()
             else:

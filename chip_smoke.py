@@ -90,6 +90,27 @@ latency and lines/s. Then `workers`: the service phase's app with
 spread over the processes, the cold routes, a reload and a SIGKILLed
 worker; only the primary may hold a CUDA context.
 
+Then `fabric`: three shard processes, `python -m banjax_tpu_torch.cli
+-config-file shard-X.yaml`, each with its own CUDA context on the card,
+on the deploy file's keys at `service`'s width with `fabric_enabled:
+true` and the deploy file's fabric keys, Kafka on against the broker
+stand-in (decision replication), trace propagation, fleet metrics and
+fleet incident capture on. Each IP's lines enter through one shard's log
+(about two thirds are owned by another shard); one shard gets the
+request mix (replicated bans from its fast path, solved cookies through
+kernel C); one shard is SIGKILLed mid-flood and the rest of the flood
+goes to the survivors' logs. Every ban must reach every live shard, the
+survivors' bans must hold every ban of a single-process app on the card
+fed what entered them (recall 1.0, per ban line), every shard's fabric
+accounting must close, the takeover must complete, `/metrics?fleet=1`
+must merge the live shards and flag the dead one, `/decisions/explain`
+must be proxied with the origin node, an incident must hold the live
+peer's files, kernels A and B must launch in every shard (counted in
+each shard's own torch.profiler capture), and no shard may be left
+running. It prints lines/s through the fabric and through the single
+process, frames, ack RTT, line → ban-log latency by hop and the
+takeover's detection and replay times.
+
 The kernel phases time each shape three ways: `ms` (CUDA events around
 20 back-to-back wrapper calls; the host's enqueue bounds it when slower
 than the card, and `host_enqueue_us` says so), `device_ms` (the same 20
@@ -255,6 +276,25 @@ WORKERS = dict(
     lockout_ip="110.0.0.1",
     kill_clients=8,
 )
+# the decision fabric: three shard processes at service's width; each
+# shard's log gets timed_writes, then captured_writes under a profiler
+# capture, then (the victim killed) after_writes on the survivors
+FABRIC = dict(
+    n_rules=1000,
+    batch_lines=4096,
+    capacity=65536,
+    warm_capacity=131_072,
+    timed_writes=4,
+    captured_writes=2,
+    after_writes=3,
+    n_ips=50_000,
+    n_offenders=120,
+    offender_hits=40,
+    capture_s=6.0,
+    ban_requests=512,
+    solved=128,
+)
+
 SHA_HOST = "sha.example"   # the one host in sitewide_sha_inv_list (block)
 LOG_HOST = "example.org"
 
@@ -3640,6 +3680,655 @@ def run_workers(dev, service, n_rules, batch_lines, capacity, warm_capacity, wor
     return launches
 
 
+# ---------------------------------------------------------------- fabric
+
+FABRIC_SHARDS = ("a", "b", "c")
+FABRIC_VICTIM = "b"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def prom(port: int) -> dict:
+    """One shard's /metrics, parsed strictly."""
+    from banjax_tpu_torch.obs.exposition import parse_text_format
+
+    code, text, _ = http_text(port, "/metrics")
+    check(code == 200, f"/metrics on :{port} answers: {code}")
+    return parse_text_format(text)
+
+
+def prom_value(parsed: dict, sample: str, **labels) -> float:
+    """The sum of a sample name's values (a histogram's `_sum` too)."""
+    ent = parsed.get(sample) or parsed.get(sample.rsplit("_", 1)[0]) or {}
+    return sum(v for name, lab, v in ent.get("samples", ())
+               if name == sample and all(lab.get(k) == x for k, x in labels.items()))
+
+
+def hist_quantiles(parsed: dict, fam: str, qs=(0.5, 0.99)) -> dict:
+    """Bucket-bound quantiles of a histogram family summed over its series
+    (the upper bound of the bucket holding each quantile)."""
+    ent = parsed.get(fam)
+    if not ent:
+        return {}
+    buckets = {}
+    for name, lab, v in ent["samples"]:
+        if name == fam + "_bucket":
+            le = float("inf") if lab["le"] == "+Inf" else float(lab["le"])
+            buckets[le] = buckets.get(le, 0.0) + v
+    total = buckets.get(float("inf"), 0.0)
+    out = {"count": total}
+    for q in qs:
+        out[f"p{int(q * 100)}_s"] = next((le for le in sorted(buckets)
+                                          if total and buckets[le] >= q * total), None)
+    return out
+
+
+FABRIC_COUNTERS = {
+    "local": "banjax_fabric_local_lines_total",
+    "forwarded": "banjax_fabric_forwarded_lines_total",
+    "received": "banjax_fabric_received_lines_total",
+    "shed": "banjax_fabric_shed_lines_total",
+    "replayed": "banjax_fabric_replayed_lines_total",
+    "skipped": "banjax_fabric_replay_skipped_lines_total",
+    "takeovers": "banjax_fabric_takeovers_total",
+    "acks": "banjax_fabric_acks_total",
+    "replicated": "banjax_fabric_replicated_decisions_total",
+    "applied": "banjax_fabric_replicated_applied_total",
+}
+
+
+def expiring_ips(text: str) -> set:
+    """The IPs of /decision_lists' dynamic (expiring) section."""
+    section = text.split("\nexpiring:\n", 1)[1]
+    return {ln[:-1] for ln in section.splitlines() if ln and not ln.startswith("\t")}
+
+
+def fabric_counts(parsed: dict) -> dict:
+    out = {k: prom_value(parsed, fam) for k, fam in FABRIC_COUNTERS.items()}
+    out["frames"] = prom_value(parsed, "banjax_fabric_frames_total")
+    out["inflight"] = prom_value(parsed, "banjax_fabric_inflight_frames")
+    out["frame_bytes"] = prom_value(parsed, "banjax_fabric_frame_bytes_sum")
+    return out
+
+
+class BanLogWatch:
+    """Follows ban-log files from a thread of its own: when each line first
+    showed, on the smoke's clock."""
+
+    def __init__(self, paths: dict):
+        self.paths, self.seen, self._pos = paths, {n: [] for n in paths}, {n: 0 for n in paths}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="ban-watch", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        import os
+
+        while not self._stop.is_set():
+            for n, path in self.paths.items():
+                if not os.path.exists(path):
+                    continue
+                with open(path) as f:
+                    f.seek(self._pos[n])
+                    data = f.read()
+                cut = data.rfind("\n") + 1
+                if cut:
+                    t = time.perf_counter()
+                    self._pos[n] += len(data[:cut].encode())
+                    self.seen[n] += [(t, ln) for ln in data[:cut].splitlines() if ln]
+            self._stop.wait(0.002)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(5)
+
+
+def run_fabric(dev, n_rules, batch_lines, capacity, warm_capacity, timed_writes,
+               captured_writes, after_writes, n_ips, n_offenders, offender_hits, capture_s,
+               ban_requests, solved, edge, timeout_s=120.0) -> dict:
+    """The decision fabric on device `dev`: three shard processes, each
+    `python -m banjax_tpu_torch.cli -config-file shard-X.yaml` with its own
+    CUDA context on the one card, on the deploy file's keys at `service`'s
+    width with `fabric_enabled: true` and the deploy file's fabric keys
+    (vnodes 64, gossip 1 s, suspect 3 s, wire v2, 8 frames in flight, shm
+    off), Kafka on against `KafkaBrokerStandIn` with `kafka`'s TTLs, trace
+    propagation, fleet metrics and fleet incident capture on, `profile: true`, the fake
+    kernel edge first on PATH (and the netlink writer off: no message may
+    reach the machine's kernel). Each IP's lines enter through one shard's
+    log. `timed_writes` writes a shard (lines/s), `captured_writes` more
+    under a `/debug/torch/trace` capture on every shard (kernels A and B
+    counted in each shard's own trace) while the request mix goes to one
+    shard (replicated bans from its fast path, solved cookies through
+    kernel C) and the replicated bans to a second; then one shard is
+    SIGKILLed, the survivors take its range over, and `after_writes` go to
+    the survivors' logs only. Checks:
+    replication, recall 1.0 per IP against a single-process app on `dev`
+    fed what entered the survivors (and the victim's acked forwards), the
+    accounting, the takeover, the fleet routes, the launches, cleanup.
+    Precision is reported, with the frames sent again past the ack deadline,
+    the lines their owners drained twice (as JAX does), and the survivors'
+    extra ban lines split into repeats of the one process's banned IPs and
+    IPs it never banned. Returns the launches of A, B and C read from the
+    shards' captures."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import zlib
+    from collections import Counter
+
+    import yaml
+
+    from banjax_tpu_torch import workload
+    from banjax_tpu_torch.cli import BanjaxApp
+    from banjax_tpu_torch.crypto.challenge import new_challenge_cookie_at
+    from banjax_tpu_torch.fabric.hashring import ConsistentHashRing
+    from banjax_tpu_torch.obs.exposition import parse_text_format
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    workdir_obj = tempfile.TemporaryDirectory(prefix="fabric-", dir=os.path.join(here, "build"))
+    workdir = workdir_obj.name
+    patterns = workload.generate_rules(n_rules, seed=SEED)
+    ids, victim = FABRIC_SHARDS, FABRIC_VICTIM
+    survivors = tuple(n for n in ids if n != victim)
+    fport = {n: free_port() for n in ids}
+    hport = {n: free_port() for n in ids}
+    peers = {n: f"127.0.0.1:{fport[n]}" for n in ids}
+    broker = KafkaBrokerStandIn().start()
+    paths, procs, logs = {}, {}, {}
+    for n in ids:
+        paths[n] = service_config(
+            workdir, patterns, capacity, warm_capacity, batch_lines, f"shard-{n}",
+            fabric_enabled=True, fabric_node_id=n, fabric_listen=peers[n], fabric_peers=peers,
+            fabric_trace_propagation=True, fleet_metrics_enabled=True,
+            flightrec_fleet_capture=True, flightrec_dir=os.path.join(workdir, f"incidents-{n}"),
+            disable_kafka=False, kafka_brokers=[f"127.0.0.1:{broker.port}"],
+            kafka_max_wait_ms=100, profile=True, ipset_netlink_enabled=False,
+            # the kafka phase's TTLs: a replicated block_ip lives
+            # block_session_ttl_seconds (the reference's quirk), 0 in the
+            # deploy file, under which it expires at once
+            **KAFKA_TTLS)
+    with open(paths[ids[0]]) as f:
+        shard_cfg = yaml.safe_load(f)
+    topic = shard_cfg["kafka_command_topic"]
+    out = {}
+    watch = None
+    try:
+        t0 = time.perf_counter()
+        for n in ids:
+            cmd = [sys.executable, "-m", "banjax_tpu_torch.cli", "-config-file", paths[n],
+                   "-port", str(hport[n])] + (["-device", "cpu"] if dev.type == "cpu" else [])
+            logs[n] = open(os.path.join(workdir, f"shard-{n}.out"), "w")
+            procs[n] = subprocess.Popen(cmd, cwd=here, stdout=logs[n], stderr=subprocess.STDOUT)
+
+        def up(n):
+            if procs[n].poll() is not None:
+                raise RuntimeError(f"shard {n} exited with {procs[n].returncode}")
+            try:
+                return http_text(hport[n], "/healthz")[0] in (200, 503)
+            except OSError:
+                return False
+
+        wait_for(lambda: all(up(n) for n in ids), "the shards to serve", timeout_s)
+        # every shard's Kafka reader past its first offset: a sync command
+        # until each shard's lists hold it
+        sync_ip = "192.0.2.254"
+        sync = json.dumps({"Name": "block_ip", "Value": sync_ip, "host": LOG_HOST}).encode()
+
+        def synced():
+            broker.append(topic, [sync])
+            time.sleep(0.2)
+            return all(sync_ip in expiring_ips(http_text(hport[n], "/decision_lists")[1])
+                       for n in ids)
+
+        wait_for(synced, "every shard's Kafka reader", timeout_s)
+        start_s = time.perf_counter() - t0
+        card_open = {n: opens_the_card(procs[n].pid) for n in ids} if dev.type == "cuda" else {}
+
+        # ---- the flood: each IP enters through one log; stamped ahead
+        # of the clock so that a replay after the takeover is not stale ----
+        n_writes = timed_writes + captured_writes + after_writes
+        # a tenth more than three logs' writes: the split by IP is uneven
+        stream = workload.access_log(33 * n_writes * batch_lines // 10, patterns, time.time(),
+                                     seed=SEED + 9, n_ips=n_ips, n_offenders=n_offenders,
+                                     offender_hits=offender_hits)
+        by_log = {n: [] for n in ids}
+        for ln in stream:
+            ip_rest = ln.split(" ", 1)[1]
+            by_log[ids[zlib.crc32(ip_rest.split(" ", 1)[0].encode()) % 3]].append(ip_rest)
+        stamp_base = time.time() + 600.0
+        writes = {n: [stamped(by_log[n][k * batch_lines:(k + 1) * batch_lines],
+                              stamp_base + 2 * k) for k in range(n_writes)] for n in ids}
+        ring = ConsistentHashRing(ids, vnodes=shard_cfg["fabric_vnodes"])
+        owner = {}
+        for n in ids:
+            for part in writes[n]:
+                for ln in part:
+                    ip = ln.split(" ", 2)[1]
+                    if ip not in owner:
+                        owner[ip] = ring.owner(ip)
+        foreign = {n: sum(owner[ln.split(" ", 2)[1]] != n for part in writes[n] for ln in part)
+                   / sum(map(len, writes[n])) for n in ids}
+        appended = {n: 0 for n in ids}
+        append_at = []  # (perf time, shard, write k)
+        watch = BanLogWatch({n: os.path.join(workdir, f"shard-{n}.bans") for n in ids})
+        last = {}
+
+        def append_write(n, k):
+            append_lines(os.path.join(workdir, f"shard-{n}.log"), writes[n][k])
+            appended[n] += len(writes[n][k])
+            append_at.append((time.perf_counter(), n, k))
+
+        def settled(live):
+            # every line tailed is routed (the ledger), and every window is
+            # empty: each forwarded frame was drained by its owner (the ack
+            # follows the drain)
+            counts = {n: fabric_counts(prom(hport[n])) for n in live}
+            last.update(counts)
+            return all(c["local"] + c["forwarded"] + c["shed"] + c["skipped"]
+                       - c["received"] - c["replayed"] == appended[n] and c["inflight"] == 0
+                       for n, c in counts.items())
+
+        def wait_settled(live, what):
+            # a scrape of each shard every 50 ms: the polls share the
+            # shards' interpreter locks with their matchers
+            deadline = time.monotonic() + timeout_s
+            while not settled(live):
+                if time.monotonic() > deadline:
+                    lat = {n: hist_quantiles(prom(hport[n]), "banjax_batch_latency_seconds")
+                           for n in live}
+                    raise RuntimeError(f"timed out waiting for {what}: {last}; "
+                                       f"batch latency {lat}")
+                time.sleep(0.05)
+
+        # warm-up: each shard builds its matcher on its first batch, then
+        # takes a write's worth of benign lines, all of IPs it owns itself.
+        # A frame whose owner is slower than the sender's ack deadline (2x
+        # fabric_send_timeout_ms) is sent again, and the owner, which keeps
+        # no record of the frames it drained, processes it twice (as in JAX)
+        own = {n: [ip for ip in (f"104.{ids.index(n)}.{j >> 8}.{j & 255}"
+                                 for j in range(4 * batch_lines)) if ring.owner(ip) == n]
+               for n in ids}
+        for size in (64, batch_lines):
+            for n in ids:
+                warm = stamped([f"{ip} GET {LOG_HOST} GET /warm/{j} HTTP/1.1 Mozilla/5.0 -"
+                                for j, ip in enumerate(own[n][:size])], stamp_base - 5)
+                append_lines(os.path.join(workdir, f"shard-{n}.log"), warm)
+                appended[n] += len(warm)
+            wait_settled(ids, f"the {size}-line warm-up to settle")
+        warm_s = time.perf_counter() - t0 - start_s
+
+        # the timed writes: a write to each log at once, then settle (as
+        # `service` waits for each write)
+        t_f = time.perf_counter()
+        for k in range(timed_writes):
+            for n in ids:
+                append_write(n, k)
+            wait_settled(ids, f"timed write {k + 1} to settle")
+        fabric_wall = time.perf_counter() - t_f
+        timed_lines = sum(len(writes[n][k]) for n in ids for k in range(timed_writes))
+        shed_before = {n: last[n]["shed"] for n in ids}
+
+        # ---- the captured part: a torch.profiler trace on every shard over
+        # two writes each and the request mix to shard a ----
+        for n in ids:
+            code, body = http_json(hport[n], "GET", "/debug/torch/trace?seconds=0.2")
+            check(code == 200, f"shard {n}'s /debug/torch/trace answers: {body}")
+        caps = {}
+
+        def take(n):
+            caps[n] = http_json(hport[n], "GET", f"/debug/torch/trace?seconds={capture_s}")
+
+        cap_threads = [threading.Thread(target=take, args=(n,)) for n in ids]
+        for t in cap_threads:
+            t.start()
+        time.sleep(0.5)  # the profilers start on the shards' server threads
+        t_c = time.perf_counter()
+        for k in range(timed_writes, timed_writes + captured_writes):
+            for n in ids:
+                append_write(n, k)
+            time.sleep(0.05)
+        wait_settled(ids, "the captured writes to settle")
+        bans_pre = {n: [ln for _, ln in watch.seen[n]] for n in ids}
+        banned = {}  # ip -> the strongest decision of its ban lines
+        for ln in (ln for n in ids for ln in bans_pre[n]):
+            row = json.loads(ln)
+            if banned.get(row["client_ip"]) not in ("NginxBlock", "IptablesBlock"):
+                banned[row["client_ip"]] = row["action"]
+        check(len(banned) >= 8, f"the flood banned IPs: {len(banned)}")
+
+        # replication: every ban in every shard's lists
+        unreplicated = {}
+
+        def replicated():
+            for n in ids:
+                listed = expiring_ips(http_text(hport[n], "/decision_lists")[1])
+                unreplicated[n] = sorted(set(banned) - listed)
+            return not any(unreplicated.values())
+
+        try:
+            wait_for(replicated, "every ban in every shard's lists", timeout_s)
+        except RuntimeError:
+            raise RuntimeError(f"bans missing from shards' lists: "
+                               f"{ {n: v[:5] for n, v in unreplicated.items()} }") from None
+        # the request mix to shard a: bans owned elsewhere (its fast path),
+        # solved cookies (the chain, kernel C); and shard c's decision
+        # table, with the bans it does not own
+        asker = ids[0]
+
+        def ban_reqs(n, limit):
+            remote = sorted(ip for ip in banned if owner.get(ip, ring.owner(ip)) != n)
+            check(remote, f"shard {n} holds bans another shard minted")
+            return [(ip, LOG_HOST, None, 429 if banned[ip] == "Challenge" else 403)
+                    for ip in remote[:limit]]
+
+        def ask(n, reqs):
+            hits0 = prom_value(prom(hport[n]), "banjax_serve_fastpath_hits_total")
+            c = HttpClient(hport[n])
+            t_r = time.perf_counter()
+            try:
+                statuses = [int(c.get(ip, host, cookie).split(b" ", 2)[1])
+                            for ip, host, cookie, _ in reqs]
+            finally:
+                c.close()
+            req_s = time.perf_counter() - t_r
+            hits = prom_value(prom(hport[n]), "banjax_serve_fastpath_hits_total") - hits0
+            return req_s, hits, [(reqs[i][:2], statuses[i], reqs[i][3])
+                                 for i in range(len(reqs)) if statuses[i] != reqs[i][3]]
+
+        reqs = ban_reqs(asker, ban_requests)
+        now = int(time.time())
+        secret, bits = shard_cfg["hmac_secret"], shard_cfg["sha_inv_expected_zero_bits"]
+        for j in range(solved):
+            ip = f"106.9.{j >> 8}.{j & 255}"
+            reqs.append((ip, SHA_HOST, solve(new_challenge_cookie_at(secret, now + 3600, ip),
+                                             bits), 200))
+        req_s, hits, wrong = ask(asker, reqs)
+        other = ids[2]
+        other_reqs = ban_reqs(other, ban_requests)
+        _, other_hits, other_wrong = ask(other, other_reqs)
+        for t in cap_threads:
+            t.join(capture_s + timeout_s)
+        captured_s = time.perf_counter() - t_c
+        captures = {}
+        for n in ids:
+            code, body = caps.get(n, (0, {}))
+            check(code == 200, f"shard {n}'s capture: {body}")
+            captures[n] = capture_kernels(body["trace_file"])
+            with open(body["trace_file"]) as f:
+                events = json.load(f)["traceEvents"]
+            captures[n]["kernels"]["pow_verify"] = sum(
+                1 for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"
+                and "pow_verify_kernel" in e.get("name", ""))
+            shutil.rmtree(os.path.dirname(body["trace_file"]), ignore_errors=True)
+
+        # ---- the fleet routes before the kill ----
+        code, fleet_text, fleet_s = http_text(hport[asker], "/metrics?fleet=1")
+        check(code == 200, f"/metrics?fleet=1 answers: {code}")
+        fleet = parse_text_format(fleet_text)
+        unreach_before = {lab["instance"]: v for _, lab, v
+                          in fleet["banjax_fleet_peer_unreachable"]["samples"]}
+        merged_fwd = prom_value(fleet, "banjax_fabric_forwarded_lines_total")
+        ack_rtt = hist_quantiles(fleet, "banjax_fabric_ack_rtt_seconds")
+        # a ban minted from a forwarded line, explained through shard a:
+        # proxied to its owner, its record naming the shard that tailed it
+        log_of = {ln.split(" ", 2)[1]: n for n in ids for part in writes[n] for ln in part}
+        crossing = sorted(ip for ip in banned
+                          if log_of.get(ip) not in (None, owner.get(ip)) and owner[ip] != asker)
+        check(crossing, "a ban minted from a forwarded line, owned away from shard a")
+        code, explained = http_json(hport[asker], "GET", f"/decisions/explain?ip={crossing[0]}")
+        recs = [r for r in explained.get("records", []) if r["source"] == "rate_limit"]
+        explain_ok = (code == 200 and explained.get("proxied") is True
+                      and explained.get("owning_node") == owner[crossing[0]] and recs
+                      and all(r.get("origin_node") == log_of[crossing[0]] for r in recs))
+
+        # ---- the kill: the victim's forwards all acked (settled above) ----
+        pre_kill = {n: dict(last[n]) for n in ids}
+        t_k = time.perf_counter()
+        procs[victim].send_signal(signal.SIGKILL)
+        procs[victim].wait(timeout_s)
+        code, text, _ = http_text(hport[asker], "/metrics?fleet=1")
+        check(code == 200, f"/metrics?fleet=1 after the kill answers: {code}")
+        unreach_after = {lab["instance"]: v for _, lab, v
+                         in parse_text_format(text)["banjax_fleet_peer_unreachable"]["samples"]}
+        wait_for(lambda: all(fabric_counts(prom(hport[n]))["takeovers"] >= 1 for n in survivors),
+                 "the survivors' takeover", timeout_s)
+        takeover_wall = time.perf_counter() - t_k
+        took = {}
+        for n in survivors:
+            parsed = prom(hport[n])
+            took[n] = {
+                "detection_sum_s": prom_value(parsed,
+                                              "banjax_fabric_membership_detection_seconds_sum"),
+                "replay_duration_sum_s": prom_value(
+                    parsed, "banjax_fabric_takeover_duration_seconds_sum"),
+                "replayed_lines": prom_value(parsed, "banjax_fabric_replayed_lines_total"),
+            }
+
+        # ---- the rest of the flood, through the survivors' logs only ----
+        t_a = time.perf_counter()
+        for k in range(timed_writes + captured_writes, n_writes):
+            for n in survivors:
+                append_write(n, k)
+            time.sleep(0.05)
+        last.pop(victim)
+        last[victim] = pre_kill[victim]
+        wait_settled(survivors, "the survivors to settle")
+        after_wall = time.perf_counter() - t_a
+        final = {n: dict(last[n]) for n in ids}
+        batch_latency = {n: hist_quantiles(prom(hport[n]), "banjax_batch_latency_seconds")
+                         for n in survivors}
+        time.sleep(0.2)
+        watch.stop()
+        bans = {n: [ln for _, ln in watch.seen[n]] for n in ids}
+
+        # ---- a single process on the same card, fed what entered the
+        # survivors' logs and the victim's acked forwards ----
+        fed_pre = [ln for n in survivors for k in range(timed_writes + captured_writes)
+                   for ln in writes[n][k]]
+        fed_pre += [ln for k in range(timed_writes + captured_writes)
+                    for ln in writes[victim][k] if owner[ln.split(" ", 2)[1]] != victim]
+        fed_after = [ln for k in range(timed_writes + captured_writes, n_writes)
+                     for n in survivors for ln in writes[n][k]]
+        ref_path = service_config(workdir, patterns, capacity, warm_capacity, batch_lines, "ref")
+        ref = BanjaxApp(ref_path, device=dev)
+        edge.attach(ref)
+        done = [0]
+        inner = ref.tailer.on_lines
+
+        def counting(batch):
+            inner(batch)
+            done[0] += len(batch)
+
+        ref.tailer.on_lines = counting
+        ref.start_background(port=0)
+        try:
+            wait_for(ref.tailer.opened.is_set, "the single-process app's tailer", timeout_s)
+            warm = stamped([f"104.9.0.{j % 250 + 1} GET {LOG_HOST} GET /warm/{j} HTTP/1.1 "
+                            "Mozilla/5.0 -" for j in range(64)], stamp_base - 5)
+            append_lines(os.path.join(workdir, "ref.log"), warm)
+            wait_for(lambda: done[0] >= len(warm), "the single-process app's warm-up", timeout_s)
+            t_s = time.perf_counter()
+            fed = len(warm)
+            # in the fabric's order: what entered before the kill, then after
+            for part in [fed_pre[i:i + batch_lines] for i in range(0, len(fed_pre), batch_lines)] \
+                    + [fed_after[i:i + batch_lines] for i in range(0, len(fed_after), batch_lines)]:
+                append_lines(os.path.join(workdir, "ref.log"), part)
+                fed += len(part)
+                wait_for(lambda: done[0] >= fed, "the single-process app", timeout_s)
+            single_wall = time.perf_counter() - t_s
+            batch_latency["single_process"] = hist_quantiles(
+                parse_text_format(ref.render_metrics_text()), "banjax_batch_latency_seconds")
+            with open(os.path.join(workdir, "ref.bans")) as f:
+                ref_bans = f.read().splitlines()
+        finally:
+            ref.stop_background()
+
+        # recall per IP: every ban of the single process, among the survivors'
+        engine = Counter(ln for n in survivors for ln in bans[n])
+        oracle = Counter(ref_bans)
+        tp = sum((engine & oracle).values())
+        recall = tp / sum(oracle.values()) if oracle else 1.0
+        precision = tp / sum(engine.values()) if engine else 1.0
+        missing = sorted({json.loads(ln)["client_ip"] for ln in (oracle - engine)})
+        # the survivors' extra ban lines: repeats of IPs the one process
+        # banned too, or IPs it never banned
+        oracle_ips = {json.loads(ln)["client_ip"] for ln in oracle}
+        extra = list((engine - oracle).elements())
+        extra_repeats = sum(json.loads(ln)["client_ip"] in oracle_ips for ln in extra)
+
+        # line -> ban-log latency by hop (each IP's first ban before the kill)
+        first_seen = {}
+        for n in ids:
+            for t, ln in watch.seen[n]:
+                ip = json.loads(ln)["client_ip"]
+                if ip in owner and ip not in first_seen and t < t_k:
+                    first_seen[ip] = t
+        lat = {"local": [], "fabric": []}
+        for ip, t in first_seen.items():
+            ats = [a for a, n, k in append_at if n == log_of.get(ip) and a <= t
+                   and any(ln.split(" ", 2)[1] == ip for ln in writes[n][k])]
+            if ats:
+                lat["local" if log_of[ip] == owner[ip] else "fabric"].append(t - max(ats))
+
+        # ---- an incident on shard a holds its live peer's files: the
+        # breaker tripped by matcher.device on a write only shard a owns ----
+        threshold = shard_cfg["breaker_failure_threshold"]
+        code, _ = http_json(hport[asker], "POST", "/debug/failpoints",
+                            {"arm": [{"name": "matcher.device", "count": threshold}]})
+        check(code == 200, "/debug/failpoints armed matcher.device on shard a")
+        own = [f"104.9.{j >> 8}.{j & 255}" for j in range(4096)]
+        own = [ip for ip in own if ring.owner(ip, set(survivors)) == asker][:threshold * 4]
+        for j in range(threshold):
+            part = stamped([f"{ip} GET {LOG_HOST} GET /drill/{j} HTTP/1.1 Mozilla/5.0 -"
+                            for ip in own[j * 4:(j + 1) * 4]], stamp_base + 3 * n_writes)
+            append_lines(os.path.join(workdir, f"shard-{asker}.log"), part)
+            time.sleep(0.3)
+        incidents = []
+        wait_for(lambda: incidents.extend(http_json(hport[asker], "GET", "/debug/incidents")[1]
+                                          .get("incidents", [])) or incidents,
+                 "an incident on shard a", timeout_s)
+        files = incidents[0].get("files", [])
+        peer_files = sorted(f for f in files if f.startswith("peers/"))
+        code, peer_fabric = http_json(
+            hport[asker], "GET", f"/debug/incidents?name={incidents[0]['name']}"
+            f"&file=peers/{survivors[1]}/fabric.json") if peer_files else (0, {})
+
+        # ---- cleanup: the survivors stop on SIGTERM; nothing is left ----
+        for n in survivors:
+            procs[n].send_signal(signal.SIGTERM)
+        exits = {n: procs[n].wait(timeout_s) for n in ids}
+        left = [n for n in ids if procs[n].poll() is None]
+        out = {
+            "start_s": start_s, "warm_s": warm_s, "foreign_share": foreign,
+            "card_open": card_open,
+            "lines_per_s": {"fabric_3_shards": timed_lines / fabric_wall,
+                            "single_process": (len(fed_pre) + len(fed_after)) / single_wall},
+            "timed_lines": timed_lines, "fabric_wall_s": fabric_wall,
+            "single_lines": len(fed_pre) + len(fed_after), "single_wall_s": single_wall,
+            "forwarded": {n: final[n]["forwarded"] for n in ids},
+            "frames": {n: final[n]["frames"] for n in ids},
+            "frame_bytes": {n: final[n]["frame_bytes"] for n in ids},
+            # frames sent again after the ack deadline, and the lines their
+            # owners drained twice
+            "retransmits": {n: final[n]["frames"] - final[n]["acks"] for n in ids},
+            "lines_drained_twice": sum(final[n]["received"] - final[n]["forwarded"] for n in ids),
+            "ack_rtt": ack_rtt, "fleet_scrape_s": fleet_s, "batch_latency": batch_latency,
+            "line_to_ban_ms": {hop: {"n": len(xs), "p50": 1e3 * percentile(xs, 0.5) if xs else None,
+                                     "p99": 1e3 * percentile(xs, 0.99) if xs else None}
+                               for hop, xs in lat.items()},
+            "bans": {n: len(bans[n]) for n in ids}, "single_process_bans": len(ref_bans),
+            "recall": recall, "precision": precision, "missing_ips": missing[:5],
+            "extra_ban_lines": {"repeats_of_banned_ips": extra_repeats,
+                                "ips_never_banned": len(extra) - extra_repeats},
+            "accounting": {n: final[n] for n in ids}, "shed_before_kill": shed_before,
+            "takeover_wall_s": takeover_wall, "takeover": took,
+            "replicated_ips": len(banned), "requests": len(reqs), "request_s": req_s,
+            "wrong_statuses": wrong[:3], "fast_path_hits": hits,
+            "shard_c": {"requests": len(other_reqs), "fast_path_hits": other_hits,
+                        "wrong_statuses": other_wrong[:3]},
+            "fleet_unreachable_before": unreach_before,
+            "fleet_unreachable_after_kill": unreach_after, "fleet_forwarded": merged_fwd,
+            "explain": {"ip": crossing[0], "owning_node": explained.get("owning_node"),
+                        "proxied": explained.get("proxied"),
+                        "origin_nodes": sorted({r.get("origin_node", "") for r in recs})},
+            "incident": {"files": len(files), "peer_files": peer_files,
+                         "peer_fabric_node": (peer_fabric or {}).get("node_id")},
+            "captures": {n: captures[n]["kernels"] for n in ids}, "captured_s": captured_s,
+            "after_wall_s": after_wall, "exits": exits, "left": left,
+        }
+    finally:
+        if watch is not None:
+            watch.stop()
+        for n, p in procs.items():
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        for f in logs.values():
+            f.close()
+        broker.stop()
+        if not out:  # the phase failed: show what the shards said, and
+            # keep their whole output beside the workdir
+            for n in ids:
+                path = os.path.join(workdir, f"shard-{n}.out")
+                if os.path.exists(path):
+                    kept = os.path.join(here, "build", f"fabric-shard-{n}.out")
+                    shutil.copyfile(path, kept)
+                    with open(path) as f:
+                        text = f.read()
+                    print(f"shard {n} output (tail; all of it in {kept}):\n{text[-3000:]}",
+                          file=sys.stderr)
+        workdir_obj.cleanup()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(dict(phase="fabric", config="deploy/banjax-config.yaml at service's width, three "
+              "shard processes with fabric_enabled: true", **out))
+    acct = out["accounting"]
+    check(all(acct[n]["local"] + acct[n]["forwarded"] + acct[n]["shed"] + acct[n]["skipped"]
+              - acct[n]["received"] - acct[n]["replayed"] == appended[n] for n in ids),
+          "local + forwarded + shed + replay_skipped == received + replayed on every shard")
+    check(all(v == 0 for v in shed_before.values()), f"no line shed before the kill: {shed_before}")
+    check(all(0.4 < v < 0.9 for v in foreign.values()),
+          f"about two thirds of each log's lines are owned elsewhere: {foreign}")
+    check(dev.type != "cuda" or all(card_open.values()),
+          f"every shard holds its own CUDA context: {card_open}")
+    check(not wrong and hits >= len(reqs) - solved,
+          f"shard a answers the replicated bans from its fast path: {wrong[:3]}, hits {hits}")
+    check(not other_wrong and other_hits >= len(other_reqs),
+          f"shard c answers the replicated bans from its fast path: {other_wrong[:3]}, "
+          f"hits {other_hits}")
+    check(recall == 1.0, f"recall 1.0 against one process: missing {missing[:5]}")
+    check(all(out["takeover"][n]["replayed_lines"] > 0 for n in survivors),
+          "the survivors replayed their journals")
+    check(set(unreach_before) == set(ids) and not any(unreach_before.values()),
+          f"/metrics?fleet=1 merges the three live shards: {unreach_before}")
+    check(unreach_after.get(victim) == 1, f"/metrics?fleet=1 flags the dead shard: {unreach_after}")
+    check(merged_fwd == sum(pre_kill[n]["forwarded"] for n in ids),
+          "the fleet's merged forwarded count is the shards' sum")
+    check(explain_ok, f"/decisions/explain is proxied, with the origin node: {explained}")
+    check(all(f"peers/{survivors[1]}/{fn}" in peer_files
+              for fn in ("metrics.prom", "fabric.json", "provenance.json", "trace.json"))
+          and out["incident"]["peer_fabric_node"] == survivors[1],
+          f"the incident holds the live peer's files: {peer_files}")
+    check(not left and all(exits[n] == 0 for n in survivors),
+          f"every shard process is gone: {exits}")
+    launches = {"nfa_match": sum(captures[n]["kernels"]["nfa_match"] for n in ids),
+                "window_scan": sum(captures[n]["kernels"]["window_scan"] for n in ids),
+                "pow_verify": sum(captures[n]["kernels"]["pow_verify"] for n in ids)}
+    check(dev.type != "cuda" or all(captures[n]["kernels"]["nfa_match"] > 0
+                                    and captures[n]["kernels"]["window_scan"] > 0 for n in ids),
+          f"kernels A and B launched in every shard: {out['captures']}")
+    check(dev.type != "cuda" or captures[asker]["kernels"]["pow_verify"] > 0,
+          "kernel C launched on the requests' shard")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3684,6 +4373,9 @@ def main() -> int:
         t0 = time.perf_counter()
         served = run_workers(dev, service_summary, **WORKERS, edge=edge)
         emit({"phase": "workers_seconds", "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        fabric = run_fabric(dev, **FABRIC, edge=edge)
+        emit({"phase": "fabric_seconds", "seconds": time.perf_counter() - t0})
         calls = edge.calls()
     finally:
         edge.close()
@@ -3695,8 +4387,10 @@ def main() -> int:
         k["launches_by_path"]["observability"] = observed[k["name"]]
         k["launches_by_path"]["kafka"] = kafka[k["name"]]
         k["launches_by_path"]["workers"] = served[k["name"]]
+        # the fabric's shard processes: counted in their own captures
+        k["launches_by_path"]["fabric"] = fabric[k["name"]]
         k["launches"] += (service[k["name"]] + pipeline[k["name"]] + observed[k["name"]]
-                          + kafka[k["name"]] + served[k["name"]])
+                          + kafka[k["name"]] + served[k["name"]] + fabric[k["name"]])
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {

@@ -53,6 +53,17 @@ KAFKA_KEYS = (
 )
 
 
+# the decision fabric's and fleet observability's keys
+FABRIC_KEYS = (
+    "fabric_enabled", "fabric_node_id", "fabric_listen", "fabric_peers", "fabric_vnodes",
+    "fabric_send_timeout_ms", "fabric_takeover_grace_ms", "fabric_gossip_interval_ms",
+    "fabric_suspect_timeout_ms", "fabric_indirect_probes", "fabric_graceful_leave_ms",
+    "fabric_inflight_frames", "fabric_wire_v2", "fabric_frame_max_bytes",
+    "fabric_shm_enabled", "fabric_shm_ring_bytes", "fabric_trace_propagation",
+    "fleet_metrics_enabled", "fleet_scrape_timeout_ms", "flightrec_fleet_capture",
+)
+
+
 def _jax_keys():
     return set(jax_schema._SCALAR_KEYS) | set(jax_schema._DICT_OR_LIST_KEYS) | {
         "regexes_with_rates", "per_site_regexes_with_rates"}
@@ -71,6 +82,8 @@ def test_every_jax_schema_key_is_read_or_named_not_ported():
     assert set(PIPELINE_KEYS) <= read
     assert set(OBS_KEYS) <= read
     assert set(KAFKA_KEYS) <= read
+    assert set(FABRIC_KEYS) <= read
+    assert port_config._NOT_PORTED_KEYS == {"matcher_backend", "matcher_mesh_rp"}
 
 
 def test_deploy_file_names_exactly_the_keys_the_port_does_not_read(caplog):
@@ -81,7 +94,8 @@ def test_deploy_file_names_exactly_the_keys_the_port_does_not_read(caplog):
         cfg = config_from_yaml_text(text)
     assert cfg.not_ported == expected
     assert {"serve_fastpath_enabled", "server_log_file", "banning_log_file"}.isdisjoint(expected)
-    assert {"matcher_backend", "fabric_enabled", "flightrec_fleet_capture"} <= set(expected)
+    assert expected == ["matcher_backend"]
+    assert set(FABRIC_KEYS).isdisjoint(expected)
     assert set(PIPELINE_KEYS).isdisjoint(expected)
     assert set(OBS_KEYS).isdisjoint(expected)
     assert set(KAFKA_KEYS).isdisjoint(expected) and "http_workers" not in expected
@@ -277,3 +291,52 @@ def test_deploy_not_ported_list_shrank_by_exactly_the_kafka_and_worker_keys():
     before = sorted(k for k in in_file if k in _jax_keys() - (_port_read_keys() - slice_keys))
     assert sorted(set(before) - set(cfg.not_ported)) == sorted(in_file & slice_keys)
     assert set(cfg.not_ported) <= set(before)
+
+
+SHARD = """
+fabric_enabled: true
+fabric_node_id: b
+fabric_listen: 127.0.0.1:4481
+fabric_peers: {a: "127.0.0.1:4480", b: "127.0.0.1:4481", c: "127.0.0.1:4482"}
+fabric_gossip_interval_ms: 50
+fabric_suspect_timeout_ms: 300
+fabric_inflight_frames: 0
+fabric_shm_enabled: true
+fabric_shm_ring_bytes: 4194304
+fabric_trace_propagation: true
+fleet_metrics_enabled: true
+fleet_scrape_timeout_ms: 100
+flightrec_fleet_capture: true
+"""
+
+
+@pytest.mark.parametrize("text", ["", "deploy", SHARD])
+def test_fabric_keys_match_the_jax_schema(text):
+    text = DEPLOY.read_text() if text == "deploy" else text
+    cfg, jax_cfg = config_from_yaml_text(text), jax_schema.config_from_yaml_text(text)
+    for key in FABRIC_KEYS:
+        assert getattr(cfg, key) == getattr(jax_cfg, key), key
+
+
+@pytest.mark.parametrize("text, match", [
+    ("fabric_vnodes: 0", "fabric_vnodes"),
+    ("fabric_send_timeout_ms: 0", "fabric_send_timeout_ms"),
+    ("fabric_enabled: true", "fabric_enabled"),
+    ("fabric_enabled: true\nfabric_node_id: x\nfabric_listen: ':1'\nfabric_peers: {a: ':2'}",
+     "fabric_peers"),
+    ("fabric_suspect_timeout_ms: 1000", "fabric_suspect_timeout_ms"),
+    ("fabric_indirect_probes: -1", "fabric_indirect_probes"),
+    ("fabric_graceful_leave_ms: -1", "fabric_graceful_leave_ms"),
+    ("fabric_inflight_frames: -1", "fabric_inflight_frames"),
+    ("fabric_frame_max_bytes: 100", "fabric_frame_max_bytes"),
+    ("fabric_shm_ring_bytes: 5000", "fabric_shm_ring_bytes"),
+    ("fabric_shm_enabled: true\nfabric_shm_ring_bytes: 1048576", "fabric_shm_ring_bytes"),
+    ("fleet_scrape_timeout_ms: 0", "fleet_scrape_timeout_ms"),
+    ("fabric_peers: [a]", "fabric_peers"),
+    ("fabric_wire_v2: 1", "fabric_wire_v2"),
+])
+def test_fabric_keys_are_checked_as_jax_checks_them(text, match):
+    with pytest.raises(ValueError, match=match):
+        jax_schema.config_from_yaml_text(text)
+    with pytest.raises(ValueError, match=match):
+        config_from_yaml_text(text)

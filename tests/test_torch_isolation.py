@@ -53,12 +53,16 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = sorted((ROOT / "banjax_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     scanned = {p.relative_to(ROOT / "banjax_tpu_torch").parts[0] for p in files[:-1]}
-    assert scanned >= {"challenge", "crypto", "decisions", "effectors", "httpapi",
-                       "ingest", "matcher", "obs", "utils"}
+    assert scanned >= {"challenge", "crypto", "decisions", "effectors", "fabric", "httpapi",
+                       "ingest", "matcher", "native", "obs", "utils"}
     names = {str(p.relative_to(ROOT)) for p in files}
     assert names >= {"banjax_tpu_torch/ingest/kafka_wire.py", "banjax_tpu_torch/ingest/kafka_io.py",
                      "banjax_tpu_torch/httpapi/workers.py",
-                     "banjax_tpu_torch/httpapi/worker_serve.py", "chip_smoke.py"}
+                     "banjax_tpu_torch/httpapi/worker_serve.py", "chip_smoke.py",
+                     "banjax_tpu_torch/obs/fleet.py", "banjax_tpu_torch/native/shmring.py"} | {
+        f"banjax_tpu_torch/fabric/{m}.py" for m in (
+            "__init__", "hashring", "wire", "stats", "node", "peer", "replication", "router",
+            "membership", "service")}
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p) if _forbidden(m)]
     assert not bad, bad
 
@@ -124,7 +128,7 @@ def _libraries():
 def test_every_compiled_source_lies_in_the_port():
     libs = _libraries()
     assert set(libs) >= {"nfa_match", "window_scan", "pow_verify", "fastparse", "slotmgr",
-                         "shmstate"}
+                         "shmstate", "shmring"}
     port = (ROOT / "banjax_tpu_torch").resolve()
     for lib in libs.values():
         assert lib.source.resolve().is_relative_to(port) and lib.source.exists(), lib.name

@@ -3,8 +3,8 @@ package's, on the CPU.
 
 - The registry: every family the port declares equals the JAX entry
   (name, type, help, label names), and the JAX families it leaves out are
-  exactly those of modules not ported plus the keys whose meaning would
-  differ; the histograms, `MatcherStats` and `PipelineStats` views and
+  exactly those of modules not ported (the mesh, the scenarios) plus the
+  keys whose meaning would differ; the fabric and fleet families are in; the histograms, `MatcherStats` and `PipelineStats` views and
   the strict text-format parser behave as JAX's.
 - The tracer and the provenance ledger on one call sequence; the SLO
   engine's burn rates and breaches on a virtual clock; the flight
@@ -87,10 +87,7 @@ DIFFERENT_MEANING = {
     "SingleKernelD2hBytesPerBatch", "SketchAdmissionFpRate",
 }
 # JAX families of modules the port does not have
-NOT_PORTED_MODULES = (
-    ("Mesh", "banjax_mesh_"), ("Fabric", "banjax_fabric_"), ("", "banjax_fleet_"),
-    ("", "banjax_scenario_"),
-)
+NOT_PORTED_MODULES = (("Mesh", "banjax_mesh_"), ("", "banjax_scenario_"))
 
 
 def _key(f):
@@ -117,9 +114,15 @@ def test_registry_leaves_out_exactly_the_unported_families():
                        for lk, pk in NOT_PORTED_MODULES)
         assert unported or f.line_key in DIFFERENT_MEANING, _key(f)
     assert DIFFERENT_MEANING <= {f.line_key for f in left_out}
-    # what the port does have stays declared: the e2e histogram (local hop)
+    # what the port does have stays declared: the e2e histogram (both
+    # hops), and every fabric and fleet family
     assert "banjax_e2e_latency_seconds" in port_reg.PROM_FAMILIES
     assert port_reg.is_declared_line_key("Health_matcher")
+    fabric = [f for f in jax_reg.FAMILIES
+              if f.line_key.startswith("Fabric") or f.prom.startswith(("banjax_fabric_",
+                                                                        "banjax_fleet_"))]
+    assert len(fabric) > 30 and all(_key(f) in port for f in fabric)
+    assert port_reg.FRAME_BYTES_BUCKETS == jax_reg.FRAME_BYTES_BUCKETS
 
 
 def test_histograms_and_stats_views_match_jax():
