@@ -248,6 +248,10 @@ class LinePipe:
         )
         self._next_seq = 1
         self._dead = False
+        # frames (and their lines) sent again on a new channel after a
+        # failure or a late ack; a live owner may drain them twice
+        self.resent_frames = 0
+        self.resent_lines = 0
         self._dead_reason = ""
         # a ShmRingError that stopped the pipe, raised to its producers
         self._fatal: Optional[BaseException] = None
@@ -445,6 +449,8 @@ class LinePipe:
             replays = list(self._inflight.values())
         for fr in replays:
             self._transmit(fr, retransmit=True)
+            self.resent_frames += 1
+            self.resent_lines += fr.n_lines
 
     def _attach_rings(self, sock: socket.socket) -> None:
         from banjax_tpu_torch.native import shmring

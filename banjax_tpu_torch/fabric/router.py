@@ -129,6 +129,7 @@ class FabricRouter:
         self._crashed: set = set()
         self._pipe_factory = pipe_factory
         self._pipes: Dict[str, LinePipe] = {}
+        self._resent_closed = [0, 0]  # resends of pipes already dropped
         # gossip digests from pipelined acks, drained by poll() — the
         # pipe's I/O thread must never take the router lock (it could
         # be the thread route() is waiting on for window space)
@@ -389,7 +390,19 @@ class FabricRouter:
     def _drop_pipe_locked(self, owner: str) -> None:
         pipe = self._pipes.pop(owner, None)
         if pipe is not None:
+            self._resent_closed[0] += pipe.resent_frames
+            self._resent_closed[1] += pipe.resent_lines
             pipe.close()
+
+    def resent(self) -> Dict[str, int]:
+        """Frames and lines this router's pipes sent again (a reconnect's
+        retransmit of the unacked window), dropped pipes included."""
+        with self._lock:
+            frames, lines = self._resent_closed
+            for pipe in self._pipes.values():
+                frames += pipe.resent_frames
+                lines += pipe.resent_lines
+        return {"frames": frames, "lines": lines}
 
     def close(self) -> None:
         """Shut down every pipe (service/worker teardown)."""

@@ -16,8 +16,8 @@ kernel-edge counters are the app's (`serve_stats`, `ipset_stats`); the
 worker families show when a supervisor runs; the fabric families
 (scalars, per-peer gauges and the takeover, detection, frame-size and ack
 RTT histograms) when a fabric runs. The federated `/metrics?fleet=1`
-payload is `obs/fleet.py`'s merge of such texts. Not ported: the JAX
-exposition's scenario families.
+payload is `obs/fleet.py`'s merge of such texts. The scenario families
+show once this process ran a scenario (`scenarios/stats.py`).
 
 `parse_text_format()` is the strict parser the tests use: name and
 label syntax, HELP/TYPE placement, histogram bucket monotonicity and
@@ -36,6 +36,7 @@ from banjax_tpu_torch.obs import provenance
 from banjax_tpu_torch.obs import registry
 from banjax_tpu_torch.obs.registry import COUNTER, FAMILIES, GAUGE, HISTOGRAM, Histogram
 from banjax_tpu_torch.resilience.breaker import CLOSED, HALF_OPEN, OPEN
+from banjax_tpu_torch.scenarios.stats import get_stats as scenario_stats
 
 _HEALTH_LEVELS = {"healthy": 0, "degraded": 1, "failed": 2, "unknown": 1}
 _BREAKER_STATES = (CLOSED, OPEN, HALF_OPEN)
@@ -181,6 +182,27 @@ def render_prometheus(
     if flightrec is not None:
         w.sample(registry.PROM_FAMILIES["banjax_flightrec_incidents_total"],
                  flightrec.incident_count)
+
+    # the scenario harness: last-run rows per attack shape, once this
+    # process ran a scenario
+    scen = scenario_stats().prom_snapshot()
+    if scen["runs_total"]:
+        w.sample(registry.PROM_FAMILIES["banjax_scenario_runs_total"], scen["runs_total"])
+        w.sample(registry.PROM_FAMILIES["banjax_scenario_injected_episodes_total"],
+                 scen["episodes_total"])
+        w.sample(registry.PROM_FAMILIES["banjax_scenario_invariant_failures_total"],
+                 scen["invariant_failures_total"])
+        per_gauge = {
+            "lines_per_sec": "banjax_scenario_lines_per_sec",
+            "shed_ratio": "banjax_scenario_shed_ratio",
+            "precision": "banjax_scenario_ban_precision",
+            "recall": "banjax_scenario_ban_recall",
+            "slo_burn_peak": "banjax_scenario_slo_burn_peak",
+        }
+        for name, row in sorted(scen["scenarios"].items()):
+            for field, fam_name in per_gauge.items():
+                if field in row:
+                    w.sample(registry.PROM_FAMILIES[fam_name], row[field], {"scenario": name})
 
     # the challenge plane, once this process touched it
     chal = challenge_stats()

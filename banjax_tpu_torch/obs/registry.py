@@ -13,8 +13,8 @@ the port unchanged. Two namespaces share one declaration:
   * `prom`: the `banjax_*` family `/metrics` exposes
     (`obs/exposition.py`). Interval-window keys are line-only.
 
-Not declared: the families of modules the port does not have (the
-scenario harness, the mesh), and the keys whose meaning in the port would differ
+Not declared: the families of the module the port does not have (the
+mesh), and the keys whose meaning in the port would differ
 from the JAX key's: `MatcherCpuFallbackBatches` (an open breaker refuses,
 it never reroutes to the host), `MatcherBudgetTrips` (a budget breach is
 counted but is no breaker failure), the transfer-byte keys
@@ -208,6 +208,27 @@ FAMILIES: List[Family] = [
     Family(COUNTER, "incident bundles captured by the flight recorder "
            "(obs/flightrec.py; /debug/incidents)",
            prom="banjax_flightrec_incidents_total"),
+    Family(COUNTER, "scenario-harness runs completed in this process "
+           "(bench --scenarios / the chaos soak)",
+           prom="banjax_scenario_runs_total"),
+    Family(COUNTER, "chaos failpoint episodes injected across scenario "
+           "runs", prom="banjax_scenario_injected_episodes_total"),
+    Family(COUNTER, "scenario invariant failures (accounting, leaked "
+           "turns/pins, benign-SLO, bundle-per-episode)",
+           prom="banjax_scenario_invariant_failures_total"),
+    Family(GAUGE, "last run's end-to-end lines/sec for the labeled "
+           "attack shape", prom="banjax_scenario_lines_per_sec",
+           labels=("scenario",)),
+    Family(GAUGE, "last run's (shed + drain-error) per admitted line "
+           "for the labeled shape", prom="banjax_scenario_shed_ratio",
+           labels=("scenario",)),
+    Family(GAUGE, "last run's ban precision vs the generator oracle",
+           prom="banjax_scenario_ban_precision", labels=("scenario",)),
+    Family(GAUGE, "last run's ban recall vs the generator oracle",
+           prom="banjax_scenario_ban_recall", labels=("scenario",)),
+    Family(GAUGE, "last run's peak SLO burn rate across all SLOs and "
+           "windows", prom="banjax_scenario_slo_burn_peak",
+           labels=("scenario",)),
     Family(COUNTER, "log lines folded into the device traffic sketch (count-min + "
            "HLL + rule pressure)",
            line_key="TrafficSketchLines",

@@ -77,7 +77,7 @@ standalone testing, so these phases run against `FakeKernelEdge`:
 are its ban log's IptablesBlock IPs and that `/is_banned` sees them.
 
 Then `kafka`: the pipeline phase's app and first 8 writes with Kafka on,
-against a broker stand-in this script holds (`KafkaBrokerStandIn`, on the
+against the port's broker stand-in (`ingest/broker_standin.py`, on the
 port's wire codecs). 4,096 Baskerville commands in bursts of 512 go
 through the pipeline's command lane between the writes; every
 well-formed command must land in the lists with its decision and expiry,
@@ -110,6 +110,23 @@ each shard's own torch.profiler capture), and no shard may be left
 running. It prints lines/s through the fabric and through the single
 process, frames, ack RTT, line → ban-log latency by hop and the
 takeover's detection and replay times.
+
+Then `scenarios`: every attack shape of `banjax_tpu_torch/scenarios/` at
+scale 32 with the JAX soak's seed through `ScenarioRunner` on the card
+(log_rotation through the tailer, command_flood also through the broker
+stand-in, challenge_storm with kernel C checking the solvers' cookies, a
+chaos pass over the pipeline's failpoints with a flight recorder), each
+clean run equal to the oracle (recall and precision 1.0), then the mega
+rotation at 1,048,576 distinct IPs through `TorchMatcher.consume_lines`
+held to the oracle. Then `fabric_dryrun`: the port's dry-run harness with
+three worker processes on the card, a SIGKILL mid-flood and a rejoin, then
+a churn run (gossip detection, a join through a seed, a suspicion refuted,
+a planned leave); recall 1.0, every ledger closed, no worker left. Then
+`ua_fused`: BASELINE config 4 at 500,000 lines from 100,000 IPs through
+`DeviceUAMatcher` (every UA decision equal to `check_ua_decision`, the
+rate columns equal to a rate-only kernel-A pass) and a TorchMatcher with
+auto-sized device windows (the oracle's bans, no eviction). Each prints
+its seconds and adds its launches of A, B and C to `launches_by_path`.
 
 The kernel phases time each shape three ways: `ms` (CUDA events around
 20 back-to-back wrapper calls; the host's enqueue bounds it when slower
@@ -293,6 +310,40 @@ FABRIC = dict(
     capture_s=6.0,
     ban_requests=512,
     solved=128,
+)
+
+# the scenario harness: every attack shape at scale 32 with the JAX soak's
+# seed (flash_crowd 69,632 lines from 1,024 crowd IPs, slow_drip 32,256,
+# rotating_proxies 65,686 from 65,539 IPs, command_flood 49,600 lines and
+# 98,304 commands, challenge_storm 43,008 lines and 1,536 storm clients,
+# log_rotation 69,632 with 3 rotations, benign 131,072), a chaos pass of
+# chaos_episodes; then the mega rotation at 1,048,576 distinct IPs in
+# 16,384-line chunks with tiering's cuts (65,536 slots, the warm tier, slot
+# admission, sketch width 1 << 22)
+SCENARIOS = dict(
+    seed=20260804,
+    scale=32.0,
+    chaos_episodes=6,
+    mega_ips=1_048_576,
+    mega_chunk=16_384,
+    mega_capacity=65_536,
+    mega_sketch_width=1 << 22,
+)
+# the fabric dry run: three worker processes on the card; flash_crowd at
+# scale 32 with a kill and a rejoin, then a churn run (join, suspicion,
+# leave) at churn_scale
+FABRIC_DRYRUN = dict(
+    seed=20260804,
+    scale=32.0,
+    workers=3,
+    churn_scale=32.0,
+)
+# BASELINE config 4 at its full size: 500,000 access-log lines from 100,000
+# distinct IPs, UA checks in 4,096-row batches
+UA_FUSED = dict(
+    lines=500_000,
+    ips=100_000,
+    batch=4096,
 )
 
 SHA_HOST = "sha.example"   # the one host in sitewide_sha_inv_list (block)
@@ -2865,180 +2916,6 @@ def run_observability(dev, pipeline, n_rules, batch_lines, capacity, warm_capaci
 # ------------------------------------------------------------ the Kafka channel
 
 
-class KafkaBrokerStandIn:
-    """A one-node Kafka broker in this process, built on the port's wire
-    codecs (`banjax_tpu_torch/ingest/kafka_wire.py`): the API subset the
-    port's client speaks on the "modern" ladder (ApiVersions v0, Metadata
-    v4-7, ListOffsets v2-4, Fetch v4-10 with long polls, Produce v3-7,
-    record batch v2), in-memory logs, one thread per connection, on a
-    loopback port. `append` is another producer writing to a topic;
-    `fetches` counts fetch requests by topic."""
-
-    VERSIONS = {0: (3, 7), 1: (4, 10), 2: (2, 4), 3: (4, 7), 18: (0, 0)}
-
-    def __init__(self):
-        import socket
-
-        self.logs = {}
-        self.fetches = {}
-        self._cv = threading.Condition()
-        self._server = socket.create_server(("127.0.0.1", 0))
-        self.port = self._server.getsockname()[1]
-        self._stop = threading.Event()
-        self._conns = []
-
-    def start(self) -> "KafkaBrokerStandIn":
-        threading.Thread(target=self._accept, name="broker-accept", daemon=True).start()
-        return self
-
-    def stop(self) -> None:
-        self._stop.set()
-        with self._cv:
-            self._cv.notify_all()
-        self._server.close()
-        for c in self._conns:
-            try:
-                c.close()
-            except OSError:
-                pass
-
-    def append(self, topic: str, values) -> float:
-        """Append messages to partition 0 of `topic`; returns the time."""
-        with self._cv:
-            self.logs.setdefault(topic, []).extend(values)
-            self._cv.notify_all()
-            return time.time()
-
-    def messages(self, topic: str) -> list:
-        with self._cv:
-            return list(self.logs.get(topic, []))
-
-    def _accept(self) -> None:
-        while not self._stop.is_set():
-            try:
-                conn, _ = self._server.accept()
-            except OSError:
-                return
-            self._conns.append(conn)
-            threading.Thread(target=self._serve, args=(conn,), name="broker-conn",
-                             daemon=True).start()
-
-    def _serve(self, conn) -> None:
-        import struct
-
-        from banjax_tpu_torch.ingest import kafka_wire as kw
-
-        def read(n):
-            buf = b""
-            while len(buf) < n:
-                chunk = conn.recv(n - len(buf))
-                if not chunk:
-                    return None
-                buf += chunk
-            return buf
-
-        try:
-            while not self._stop.is_set():
-                head = read(4)
-                payload = head and read(struct.unpack(">i", head)[0])
-                if not payload:
-                    return
-                r = kw._Reader(payload)
-                api, version, corr = r.i16(), r.i16(), r.i32()
-                r.string()
-                body = self._dispatch(kw, api, version, r)
-                conn.sendall(struct.pack(">ii", len(body) + 4, corr) + body)
-        except OSError:
-            pass
-        finally:
-            conn.close()
-
-    def _dispatch(self, kw, api, v, r) -> bytes:
-        import struct
-
-        if api == 18:
-            return struct.pack(">hi", 0, len(self.VERSIONS)) + b"".join(
-                struct.pack(">hhh", k, lo, hi) for k, (lo, hi) in sorted(self.VERSIONS.items()))
-        lo, hi = self.VERSIONS.get(api, (-1, -1))
-        if not lo <= v <= hi:
-            raise OSError(f"api {api} v{v} outside [{lo}, {hi}]")
-        if api == 3:  # Metadata: one broker (this one), one partition a topic
-            topics = [r.string() for _ in range(r.i32())]
-            out = struct.pack(">ii", 0, 1) + struct.pack(">i", 0) + kw._string("127.0.0.1")
-            out += struct.pack(">i", self.port) + kw._string(None) + kw._string("stand-in")
-            out += struct.pack(">ii", 0, len(topics))
-            for t in topics:
-                out += struct.pack(">h", 0) + kw._string(t) + struct.pack(">bi", 0, 1)
-                out += struct.pack(">hii", 0, 0, 0)
-                if v >= 7:
-                    out += struct.pack(">i", 0)
-                out += struct.pack(">iiii", 1, 0, 1, 0) + struct.pack(">i", 0)
-            return out
-        if api == 2:  # ListOffsets (latest)
-            r.i32()
-            r.i8()
-            r.i32()
-            topic = r.string()
-            r.i32()
-            part = r.i32()
-            if v >= 4:
-                r.i32()
-            r.i64()
-            with self._cv:
-                end = len(self.logs.get(topic, []))
-            out = struct.pack(">ii", 0, 1) + kw._string(topic) + struct.pack(">iih", 1, part, 0)
-            out += struct.pack(">qq", -1, end)
-            return out + (struct.pack(">i", 0) if v >= 4 else b"")
-        if api == 1:  # Fetch: long poll until the offset has data
-            r.i32()
-            max_wait = r.i32()
-            r.i32()
-            r.i32()
-            r.i8()
-            if v >= 7:
-                r.i32()
-                r.i32()
-            r.i32()
-            topic = r.string()
-            r.i32()
-            part = r.i32()
-            if v >= 9:
-                r.i32()
-            offset = r.i64()
-            r.i64()
-            r.i32()
-            deadline = time.time() + max_wait / 1000.0
-            with self._cv:
-                self.fetches[topic] = self.fetches.get(topic, 0) + 1
-                while (len(self.logs.get(topic, [])) <= offset and time.time() < deadline
-                       and not self._stop.is_set()):
-                    self._cv.wait(max(0.001, deadline - time.time()))
-                msgs = self.logs.get(topic, [])[offset:]
-                end = len(self.logs.get(topic, []))
-            data = b"".join(kw._encode_record_batch_v2(m, 0, offset + i) for i, m in enumerate(msgs))
-            out = struct.pack(">i", 0) + (struct.pack(">hi", 0, 0) if v >= 7 else b"")
-            out += struct.pack(">i", 1) + kw._string(topic) + struct.pack(">i", 1)
-            out += struct.pack(">ihqqqi", part, 0, end, end, 0, 0)
-            return out + struct.pack(">i", len(data)) + data
-        if api == 0:  # Produce (acks=1)
-            r.string()
-            r.i16()
-            r.i32()
-            r.i32()
-            topic = r.string()
-            r.i32()
-            part = r.i32()
-            values = [val for _, val in kw._decode_record_batches(r.bytes_() or b"")]
-            with self._cv:
-                log = self.logs.setdefault(topic, [])
-                base = len(log)
-                log.extend(values)
-                self._cv.notify_all()
-            out = struct.pack(">i", 1) + kw._string(topic) + struct.pack(">iihq", 1, part, 0, base)
-            return out + struct.pack(">qqi", -1, 0, 0)
-        raise OSError(f"api {api} is not served")
-
-
 BASKERVILLE_NAMES = ("challenge_ip", "block_ip", "challenge_session", "block_session")
 TTL_IP_HOST, TTL_SESSION_HOST = "ttl-ip.example", "ttl-session.example"
 KAFKA_TTLS = dict(expiring_decision_ttl_seconds=300, block_ip_ttl_seconds=600,
@@ -3130,6 +3007,7 @@ def run_kafka(dev, pipeline, n_rules, batch_lines, capacity, warm_capacity, writ
     from banjax_tpu_torch.cli import BanjaxApp
     from banjax_tpu_torch.crypto.challenge import new_challenge_cookie_at
     from banjax_tpu_torch.decisions.model import Decision
+    from banjax_tpu_torch.ingest.broker_standin import KafkaBrokerStandIn
     from banjax_tpu_torch.matcher.kernels import fused_match_window as fmw
     from banjax_tpu_torch.matcher.kernels import nfa_match, pow_verify
     from banjax_tpu_torch.resilience import failpoints
@@ -3829,6 +3707,7 @@ def run_fabric(dev, n_rules, batch_lines, capacity, warm_capacity, timed_writes,
     from banjax_tpu_torch.cli import BanjaxApp
     from banjax_tpu_torch.crypto.challenge import new_challenge_cookie_at
     from banjax_tpu_torch.fabric.hashring import ConsistentHashRing
+    from banjax_tpu_torch.ingest.broker_standin import KafkaBrokerStandIn
     from banjax_tpu_torch.obs.exposition import parse_text_format
 
     t_phase = time.perf_counter()
@@ -4329,6 +4208,424 @@ def run_fabric(dev, n_rules, batch_lines, capacity, warm_capacity, timed_writes,
     return launches
 
 
+# ------------------------------------------------------------ the scenario harness
+
+
+def kernel_libs() -> dict:
+    from banjax_tpu_torch.matcher.kernels import fused_match_window as fmw
+    from banjax_tpu_torch.matcher.kernels import nfa_match, pow_verify
+
+    return {"nfa_match": nfa_match.KERNEL, "window_scan": fmw.KERNEL,
+            "pow_verify": pow_verify.KERNEL}
+
+
+def launch_counts() -> dict:
+    return {name: lib.launches for name, lib in kernel_libs().items()}
+
+
+def run_scenarios(dev, seed, scale, chaos_episodes, mega_ips, mega_chunk, mega_capacity,
+                  mega_sketch_width) -> dict:
+    """Every attack shape of `scenarios/shapes.py` at `scale` through
+    `ScenarioRunner` on `dev` (TorchMatcher with device windows, the
+    pipeline, the SLO engine): log_rotation through the tailer,
+    command_flood direct and through the broker stand-in, challenge_storm
+    with `challenge_device_verify` (kernel C checks the solvers' cookies),
+    one flash_crowd pass under a ChaosSchedule over the pipeline's
+    failpoints with a flight recorder. Then the mega rotation
+    (`mega_rotating_proxies_stream`) at `mega_ips` distinct IPs through
+    `TorchMatcher.consume_lines` in `mega_chunk`-line chunks, with tiering's
+    cuts (slots, warm tier, slot admission, a wide sketch). Every clean
+    run must equal the oracle (recall and precision 1.0) and hold its
+    invariants; the challenge loop must be exact; benign must ban nothing
+    and breach no SLO; the chaos pass must close its accounting (refused
+    lines in drain errors), leave a bundle per episode and nothing armed,
+    with its precision and recall reported; the mega run must give the
+    oracle's bans. Returns the launches of A, B and C."""
+    import os
+    import tempfile
+    from collections import Counter
+
+    from banjax_tpu_torch.config import config_from_yaml_text
+    from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
+    from banjax_tpu_torch.ingest.broker_standin import KafkaBrokerStandIn
+    from banjax_tpu_torch.matcher.runner import TorchMatcher
+    from banjax_tpu_torch.resilience import failpoints
+    from banjax_tpu_torch.scenarios import ChaosSchedule, ScenarioRunner, generate, oracle, shapes
+    from banjax_tpu_torch.scenarios.chaos import PIPELINE_POINTS
+    from banjax_tpu_torch.scenarios.runtime import RecordingBanner
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    workdir_obj = tempfile.TemporaryDirectory(prefix="scenarios-", dir=os.path.join(here, "build"))
+    workdir = workdir_obj.name
+    for lib in kernel_libs().values():
+        lib.reset_launches()
+    broker = KafkaBrokerStandIn().start()
+    runs = [
+        ("flash_crowd", "direct", {}),
+        ("slow_drip", "direct", {}),
+        ("rotating_proxies", "direct", {}),
+        ("command_flood", "direct", {}),
+        ("command_flood", "kafka", {"kafka_broker": broker}),
+        ("challenge_storm", "direct", {"cfg_overrides": {"challenge_device_verify": True}}),
+        ("log_rotation", "tailer", {"via_tailer": True, "tmp_dir": workdir}),
+        ("benign", "direct", {}),
+        ("flash_crowd", "chaos", {"flightrec_dir": os.path.join(workdir, "flightrec")}),
+    ]
+    reports = []
+    try:
+        for name, mode, kw in runs:
+            sc = generate(name, seed, scale)
+            if mode == "chaos":
+                kw["chaos"] = ChaosSchedule(seed, len(sc.events), points=PIPELINE_POINTS,
+                                            episodes=chaos_episodes)
+            before = launch_counts()
+            t0 = time.perf_counter()
+            rep = ScenarioRunner(sc, device=dev, **kw).run()
+            seconds = time.perf_counter() - t0
+            launches = {k: v - before[k] for k, v in launch_counts().items()}
+            row = {
+                "phase": "scenarios", "shape": name, "mode": mode, "scale": scale,
+                "lines": rep.n_lines, "commands": rep.n_commands, "seconds": seconds,
+                "feed_s": rep.feed_s, "lines_per_s": rep.lines_per_sec,
+                "shed_lines": rep.shed_lines, "drain_error_lines": rep.drain_error_lines,
+                "refused_lines": rep.refused_lines, "stale_lines": rep.stale_lines,
+                "fallback_batches": rep.fallback_batches,
+                "engine_bans": rep.engine_bans, "oracle_bans": rep.oracle_bans,
+                "recall": rep.recall, "precision": rep.precision,
+                "device_p99_ms": rep.device_p99_ms, "slo_burn_peak": rep.slo_burn_peak,
+                "slo_breached": rep.slo_breached, "invariants": rep.invariants,
+                "command_items": rep.command_items, "launches": launches,
+            }
+            if rep.challenge is not None:
+                row["challenge"] = rep.challenge
+            if mode == "chaos":
+                row["episodes"] = [{k: ep[k] for k in ("point", "count", "probability",
+                                                       "at_event", "fired")}
+                                   | {"bundle": bool(ep["bundle"])} for ep in rep.episodes]
+                row["incidents"] = rep.incidents
+            emit(row)
+            reports.append((name, mode, rep, launches))
+    finally:
+        broker.stop()
+    for name, mode, rep, launches in reports:
+        bad = {k: v for k, v in rep.invariants.items() if not v}
+        check(not bad, f"scenario {name} ({mode}) holds its invariants: {bad}")
+        if mode == "chaos":
+            check(rep.invariants.get("bundle_per_episode") is True
+                  and sum(ep["fired"] for ep in rep.episodes) > 0
+                  and not any(fp.get("count") for fp in failpoints.snapshot()),
+                  f"the chaos pass fired, left a bundle per episode and nothing armed: "
+                  f"{rep.episodes}")
+            continue
+        check(rep.recall == 1.0 and rep.precision == 1.0 and rep.shed_lines == 0
+              and rep.drain_error_lines == 0,
+              f"scenario {name} ({mode}) equals the oracle: recall {rep.recall}, "
+              f"precision {rep.precision}, shed {rep.shed_lines}")
+        check(rep.oracle_bans > 0 or name == "benign", f"scenario {name} is not vacuous")
+        if name == "benign":
+            check(rep.engine_bans == 0 and not any(rep.slo_breached.values()),
+                  "benign bans nothing and breaches no SLO")
+        if name == "challenge_storm":
+            ch = rep.challenge
+            check(ch["ban_precision"] == 1.0 and ch["ban_recall"] == 1.0
+                  and ch["verify_path"] == "device" and ch["solver_passes"] == ch["solvers"] > 0,
+                  f"the challenge loop is exact on the device verifier: {ch}")
+            check(dev.type != "cuda" or launches["pow_verify"] > 0,
+                  f"kernel C checked the solvers' cookies: {launches}")
+        if mode in ("kafka", "direct") and name == "command_flood":
+            check(rep.command_items == rep.n_commands > 0, f"every command drained ({mode})")
+        check(dev.type != "cuda" or (launches["nfa_match"] > 0 and launches["window_scan"] > 0),
+              f"kernels A and B launched for {name} ({mode}): {launches}")
+
+    # the mega rotation: consume_lines in device-batch chunks, tiering's cuts
+    cfg = config_from_yaml_text(shapes.RULES_YAML)
+    cfg.matcher = "tpu"
+    cfg.matcher_device_windows = True
+    cfg.matcher_batch_lines = mega_chunk
+    cfg.matcher_window_capacity = mega_capacity
+    cfg.traffic_sketch_enabled = True
+    cfg.traffic_sketch_width = mega_sketch_width
+    cfg.slot_admission_enabled = True
+    cfg.warm_tier_enabled = True
+    banner = RecordingBanner()
+    m = TorchMatcher(cfg, banner, StaticDecisionLists(cfg), device=dev)
+    before = launch_counts()
+    n_lines = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    for lines in shapes.mega_rotating_proxies_stream(seed, mega_ips, chunk=mega_chunk):
+        m.consume_lines(lines, now_unix=shapes.RUN_NOW)
+        n_lines += len(lines)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    mega_launches = {k: v - before[k] for k, v in launch_counts().items()}
+    want = oracle.expected_bans(shapes.mega_offenders(seed), config_from_yaml_text(shapes.RULES_YAML))
+    precision, recall, _ = oracle.precision_recall(banner.regex_ban_logs, want)
+    tiers = m.device_windows.tier_counters()
+    emit({"phase": "scenarios", "shape": "mega_rotating_proxies", "mode": "consume_lines",
+          "distinct_ips": mega_ips, "chunk": mega_chunk, "lines": n_lines, "wall_s": wall,
+          "lines_per_s": n_lines / wall, "engine_bans": len(banner.regex_ban_logs),
+          "oracle_bans": len(want), "recall": recall, "precision": precision,
+          "reduced": {"matcher_window_capacity": mega_capacity,
+                      "traffic_sketch_width": mega_sketch_width},
+          "tier_counters": tiers, "host_us_per_line_by_stage": stage_us(m, n_lines),
+          "launches": mega_launches})
+    m.close()
+    check(Counter(banner.regex_ban_logs) == Counter(want) and len(want) > 0,
+          f"the mega rotation gives the oracle's bans: {len(banner.regex_ban_logs)} "
+          f"against {len(want)}")
+    check(tiers["slot_refusals"] > 0, "slot admission refused the rotation's one-off IPs")
+    check(dev.type != "cuda" or (mega_launches["nfa_match"] > 0
+                                 and mega_launches["window_scan"] > 0),
+          f"kernels A and B launched on the mega rotation: {mega_launches}")
+    workdir_obj.cleanup()
+    return launch_counts()
+
+
+# ------------------------------------------------------------ the fabric dry run
+
+
+def run_fabric_dryrun(dev, seed, scale, workers, churn_scale) -> dict:
+    """The port's fabric dry run (`fabric/harness.py`): `workers` worker
+    processes of `python -m banjax_tpu_torch.fabric.worker`, each a full
+    engine with its own CUDA context on the card (the harness passes
+    `--device cpu` only for a CPU rehearsal), wire v2, decision
+    replication through the broker stand-in. First flash_crowd at `scale`
+    with a SIGKILL mid-flood and a rejoin from a snapshot; then a churn
+    run at `churn_scale` (gossip detection with the feed paused, a join
+    through a seed, a slow node's suspicion refuted, a planned leave).
+    Recall 1.0 against the oracle, every ledger closed and the takeover
+    complete are gated; precision is reported beside the frames and lines
+    sent again past the ack deadline (a resent frame's lines are drained
+    twice, as in JAX). No worker may be left running. Returns the
+    workers' launches of A, B and C."""
+    import os
+    import tempfile
+
+    from banjax_tpu_torch.fabric.harness import FabricDryrun
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    workdir_obj = tempfile.TemporaryDirectory(prefix="dryrun-", dir=os.path.join(here, "build"))
+    device = "cpu" if dev.type == "cpu" else None
+    launches = {k: 0 for k in kernel_libs()}
+    runs = [("kill_rejoin", dict(scale=scale, kill=True, rejoin=True)),
+            ("churn", dict(scale=churn_scale, churn=True))]
+    for tag, kw in runs:
+        d = FabricDryrun(n_workers=workers, shape="flash_crowd", seed=seed, transport="v2",
+                         device=device, log_dir=os.path.join(workdir_obj.name, tag), **kw)
+        t0 = time.perf_counter()
+        try:
+            rep = d.run()
+        finally:
+            left = [w.wid for w in d.workers.values() if w.proc.poll() is None]
+        seconds = time.perf_counter() - t0
+        for k, v in rep["launches"].items():
+            launches[k] += v
+        row = {"phase": "fabric_dryrun", "run": tag, "workers": workers, "seconds": seconds,
+               "scale": rep["scale"], "lines": rep["n_lines"], "fed_lines": rep["fed_lines"],
+               "acked_lines": rep["acked_lines"], "feed_s": rep["feed_s"],
+               "lines_per_s": rep["lines_per_sec"], "recall": rep["recall"],
+               "precision": rep["precision"], "engine_bans": rep["engine_bans"],
+               "oracle_bans": rep["oracle_bans"], "resent": rep["resent"],
+               "duplicates_suppressed": rep["duplicates_suppressed"],
+               "takeover": rep["takeover"], "invariants": rep["invariants"],
+               "launches": rep["launches"], "workers_left_running": left}
+        for k in ("rejoin", "join", "suspect_refute", "leave"):
+            if k in rep:
+                row[k] = rep[k]
+        emit(row)
+        bad = {k: v for k, v in rep["invariants"].items() if not v}
+        check(not bad, f"the {tag} dry run holds its invariants: {bad}")
+        check(rep["recall"] == 1.0 and rep["fed_lines"] == rep["acked_lines"]
+              and bool(rep["takeover"]), f"the {tag} dry run kept every ban and took over")
+        if tag == "kill_rejoin":
+            check(all(rep["rejoin"]["invariants"].values()), f"the rejoin: {rep['rejoin']}")
+        else:
+            check(all(rep[k]["invariants"].values() for k in ("join", "suspect_refute", "leave")),
+                  "the join, the refuted suspicion and the planned leave")
+        check(not left, f"no worker is left running: {left}")
+        check(dev.type != "cuda" or (rep["launches"].get("nfa_match", 0) > 0
+                                     and rep["launches"].get("window_scan", 0) > 0),
+              f"kernels A and B launched in the {tag} workers: {rep['launches']}")
+    workdir_obj.cleanup()
+    return launches
+
+
+# ------------------------------------------------------------ fused UA matching
+
+# BASELINE config 4 (tests/perf/test_baseline_ladder.py:224-231): its
+# default-config-shaped rate rules and UA lists
+UA_RATE_RULES = r"""
+regexes_with_rates:
+  - rule: "All GET requests"
+    regex: '^GET'
+    interval: 30
+    hits_per_interval: 800
+    decision: nginx_block
+  - rule: "POST flood"
+    regex: '^POST'
+    interval: 60
+    hits_per_interval: 45
+    decision: iptables_block
+  - rule: "wp-login brute force"
+    regex: 'POST [^ ]* POST /wp-login\.php'
+    interval: 300
+    hits_per_interval: 10
+    decision: iptables_block
+  - rule: "xmlrpc"
+    regex: '(GET|POST) [^ ]* (GET|POST) /xmlrpc\.php'
+    interval: 300
+    hits_per_interval: 10
+    decision: iptables_block
+  - rule: "env probe"
+    regex: '/\.env'
+    interval: 60
+    hits_per_interval: 0
+    decision: iptables_block
+  - rule: "scanner UA"
+    regex: '(?i)sqlmap|nikto|nessus'
+    interval: 60
+    hits_per_interval: 2
+    decision: challenge
+  - rule: "instant challenge"
+    regex: '.*challengeme.*'
+    interval: 1
+    hits_per_interval: 0
+    decision: challenge
+"""
+UA_LISTS = {"challenge": ["Mozilla/4\\.[0-9]", "scanner"], "nginx_block": ["sqlmap|nikto"]}
+
+
+def access_log_lines(n: int, now: float, n_ips: int, seed: int = 0) -> list:
+    """BASELINE config 4's access-log lines (the ladder's generator)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    hosts = ["example.com", "site.org"]
+    paths = ["/", "/index.html", "/api/v1/items", "/news/2026"]
+    uas = ["Mozilla/5.0 (X11; Linux x86_64)", "curl/8.1", "sqlmap/1.7"]
+    out = []
+    for i in range(n):
+        ip = f"10.{(i % n_ips) >> 16 & 255}.{(i % n_ips) >> 8 & 255}.{i % n_ips & 255}"
+        path = paths[rng.integers(len(paths))]
+        method = "GET" if rng.random() < 0.8 else "POST"
+        out.append(f"{now:.6f} {ip} {method} {hosts[i % 2]} {method} {path} "
+                   f"HTTP/1.1 {uas[rng.integers(len(uas))]} | 200")
+    return out
+
+
+def run_ua_fused(dev, lines, ips, batch) -> dict:
+    """BASELINE config 4's shape on `dev`: `lines` access-log lines from
+    `ips` distinct IPs. `DeviceUAMatcher` (the UA lists as NFA columns
+    after the rate rules, one kernel-A pass a batch): `check_batch` over
+    the lines' User-Agents must give `check_ua_decision` for every row, and
+    `match_bits` over the lines' rests must give rate columns equal to a
+    rate-only kernel-A pass. Then the same lines through a TorchMatcher
+    with device windows (auto-sized, as config 4 runs it): the ban
+    multiset must equal the oracle's and no slot may be evicted. Rows
+    `encode_for_match` sends to the host are evaluated there (the JAX
+    semantics) and counted. Returns the launches of A, B and C."""
+    from collections import Counter
+
+    from banjax_tpu_torch.config import config_from_yaml_text
+    from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
+    from banjax_tpu_torch.decisions.ua_lists import build_ua_rules, check_ua_decision
+    from banjax_tpu_torch.matcher.fused import DeviceUAMatcher
+    from banjax_tpu_torch.matcher.runner import TorchMatcher
+    from banjax_tpu_torch.scenarios import oracle, shapes
+    from banjax_tpu_torch.scenarios.runtime import RecordingBanner
+
+    rules = build_ua_rules(UA_LISTS)
+    cfg = config_from_yaml_text(UA_RATE_RULES)
+    rate = [r.regex_string for r in cfg.regexes_with_rates]
+    log = access_log_lines(lines, shapes.T0 + 5.0, ips)
+    uas = [ln.split(" HTTP/1.1 ")[1].rsplit(" | ", 1)[0] for ln in log]
+    rests = [ln.split(" ", 2)[2] for ln in log]
+    for lib in kernel_libs().values():
+        lib.reset_launches()
+
+    dm = DeviceUAMatcher(rules, backend=dev, extra_rules=rate)
+    got = []
+    sync(dev)
+    t0 = time.perf_counter()
+    for s in range(0, lines, batch):
+        got += dm.check_batch(uas[s:s + batch])
+    sync(dev)
+    ua_wall = time.perf_counter() - t0
+    ua_host_rows = dm.host_eval_rows
+    t0 = time.perf_counter()
+    want = [check_ua_decision(rules, ua) for ua in uas]
+    serial_wall = time.perf_counter() - t0
+    ua_mismatch = sum(a != b for a, b in zip(got, want))
+
+    # match_bits over the rests against a rate-only pass (the rate rules
+    # alone compiled for kernel A)
+    rate_only = DeviceUAMatcher({}, backend=dev, extra_rules=rate)
+    fused_s = rate_s = 0.0
+    rate_mismatch = 0
+    fused_host_before = dm.host_eval_rows
+    for s in range(0, lines, batch):
+        part = rests[s:s + batch]
+        t0 = time.perf_counter()
+        fb = dm.match_bits(part)
+        fused_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rb = rate_only.match_bits(part)
+        rate_s += time.perf_counter() - t0
+        rate_mismatch += int((fb[:, :len(rate)] != rb).any(axis=1).sum())
+    bits_host_rows = dm.host_eval_rows - fused_host_before
+    ua_launches = launch_counts()
+
+    # BASELINE config 4's matcher: the same lines, device windows auto-sized
+    mcfg = config_from_yaml_text(UA_RATE_RULES)
+    mcfg.matcher = "tpu"
+    mcfg.matcher_device_windows = True
+    mcfg.matcher_window_capacity = 0
+    banner = RecordingBanner()
+    m = TorchMatcher(mcfg, banner, StaticDecisionLists(mcfg), device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    for s in range(0, lines, mcfg.matcher_batch_lines):
+        m.consume_lines(log[s:s + mcfg.matcher_batch_lines], now_unix=shapes.RUN_NOW)
+    sync(dev)
+    m_wall = time.perf_counter() - t0
+    dw = m.device_windows
+    sc = shapes.Scenario(name="baseline_config4", seed=0, scale=1.0, rules_yaml=UA_RATE_RULES,
+                         events=[shapes.LineChunk(tuple(log))], benign=False)
+    oracle_bans = oracle.expected_bans(sc, config_from_yaml_text(UA_RATE_RULES))
+    evictions, grows, capacity = dw.eviction_count, dw.grow_count, dw.capacity
+    m.close()
+    launches = launch_counts()
+    emit({
+        "phase": "ua_fused", "lines": lines, "distinct_ips": ips, "batch": batch,
+        "ua_patterns": len(dm._rows), "rate_rules": len(rate),
+        "host_rate_rules": [rate[i] for i in rate_only._host_rule_idx],
+        "check_batch": {"rows_per_s": lines / ua_wall, "wall_s": ua_wall,
+                        "mismatches": ua_mismatch, "host_eval_rows": ua_host_rows,
+                        "serial_check_ua_decision_rows_per_s": lines / serial_wall},
+        "match_bits": {"rows_per_s": lines / fused_s, "wall_s": fused_s,
+                       "rate_only_rows_per_s": lines / rate_s,
+                       "rate_column_mismatch_rows": rate_mismatch,
+                       "host_eval_rows": bits_host_rows,
+                       "rate_only_host_eval_rows": rate_only.host_eval_rows},
+        "matcher": {"lines_per_s": lines / m_wall, "wall_s": m_wall,
+                    "engine_bans": len(banner.regex_ban_logs), "oracle_bans": len(oracle_bans),
+                    "evictions": evictions, "grows": grows, "capacity": capacity},
+        "launches": launches, "launches_fused_checks": ua_launches,
+    })
+    check(ua_mismatch == 0, f"the UA decisions equal check_ua_decision: {ua_mismatch} differ")
+    check(rate_mismatch == 0, f"the fused rate columns equal the rate-only pass: "
+          f"{rate_mismatch} rows differ")
+    check(Counter(banner.regex_ban_logs) == Counter(oracle_bans) and len(oracle_bans) > 0,
+          f"config 4's matcher gives the oracle's bans: {len(banner.regex_ban_logs)} "
+          f"against {len(oracle_bans)}")
+    check(evictions == 0 and (ips <= dw.AUTO_START_CAPACITY or capacity >= ips),
+          f"the auto-sized windows held every IP without evicting: {evictions}, {capacity}")
+    check(dev.type != "cuda" or (launches["nfa_match"] > 0 and launches["window_scan"] > 0),
+          f"kernels A and B launched in the phase: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4380,6 +4677,15 @@ def main() -> int:
     finally:
         edge.close()
     emit({"phase": "kernel_edge", "fake_calls": len(calls), "first_calls": calls[:3]})
+    t0 = time.perf_counter()
+    scenarios = run_scenarios(dev, **SCENARIOS)
+    emit({"phase": "scenarios_seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    dryrun = run_fabric_dryrun(dev, **FABRIC_DRYRUN)
+    emit({"phase": "fabric_dryrun_seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    ua_fused = run_ua_fused(dev, **UA_FUSED)
+    emit({"phase": "ua_fused_seconds", "seconds": time.perf_counter() - t0})
     for k in kernels:
         k.setdefault("launches_by_path", {"challenge_path": k["launches"]})
         k["launches_by_path"]["service"] = service[k["name"]]
@@ -4389,8 +4695,14 @@ def main() -> int:
         k["launches_by_path"]["workers"] = served[k["name"]]
         # the fabric's shard processes: counted in their own captures
         k["launches_by_path"]["fabric"] = fabric[k["name"]]
+        # the scenario harness, the dry run's workers (their own counts,
+        # read over the wire), fused UA matching
+        k["launches_by_path"]["scenarios"] = scenarios[k["name"]]
+        k["launches_by_path"]["fabric_dryrun"] = dryrun[k["name"]]
+        k["launches_by_path"]["ua_fused"] = ua_fused[k["name"]]
         k["launches"] += (service[k["name"]] + pipeline[k["name"]] + observed[k["name"]]
-                          + kafka[k["name"]] + served[k["name"]] + fabric[k["name"]])
+                          + kafka[k["name"]] + served[k["name"]] + fabric[k["name"]]
+                          + scenarios[k["name"]] + dryrun[k["name"]] + ua_fused[k["name"]])
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {

@@ -62,7 +62,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                      "banjax_tpu_torch/obs/fleet.py", "banjax_tpu_torch/native/shmring.py"} | {
         f"banjax_tpu_torch/fabric/{m}.py" for m in (
             "__init__", "hashring", "wire", "stats", "node", "peer", "replication", "router",
-            "membership", "service")}
+            "membership", "service", "worker", "harness")} | {
+        f"banjax_tpu_torch/scenarios/{m}.py" for m in (
+            "__init__", "shapes", "oracle", "runtime", "chaos", "stats")} | {
+        "banjax_tpu_torch/matcher/fused.py", "banjax_tpu_torch/ingest/broker_standin.py"}
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p) if _forbidden(m)]
     assert not bad, bad
 

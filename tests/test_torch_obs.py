@@ -41,7 +41,9 @@ from banjax_tpu.obs import stats as jax_stats
 from banjax_tpu.obs import trace as jax_trace
 from banjax_tpu.pipeline import scheduler as jax_sched_mod
 from banjax_tpu.resilience import failpoints as jax_fp
+from banjax_tpu.scenarios.stats import get_stats as jax_scenario_stats
 from banjax_tpu_torch.challenge.stats import get_stats as port_challenge_stats
+from banjax_tpu_torch.scenarios.stats import get_stats as port_scenario_stats
 from banjax_tpu_torch.httpapi import decision_chain as port_chain
 from banjax_tpu_torch.obs import exposition as port_expo
 from banjax_tpu_torch.obs import flightrec as port_flightrec
@@ -65,7 +67,8 @@ def _reset_obs():
         fr.install(None)
     for fp in (port_fp, jax_fp):
         fp.disarm()
-    for st in (jax_ipset_stats(), jax_challenge_stats(), port_challenge_stats()):
+    for st in (jax_ipset_stats(), jax_challenge_stats(), port_challenge_stats(),
+               jax_scenario_stats(), port_scenario_stats()):
         st.reset()
 
 
@@ -87,7 +90,7 @@ DIFFERENT_MEANING = {
     "SingleKernelD2hBytesPerBatch", "SketchAdmissionFpRate",
 }
 # JAX families of modules the port does not have
-NOT_PORTED_MODULES = (("Mesh", "banjax_mesh_"), ("", "banjax_scenario_"))
+NOT_PORTED_MODULES = (("Mesh", "banjax_mesh_"),)
 
 
 def _key(f):

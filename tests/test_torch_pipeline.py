@@ -382,6 +382,63 @@ def test_sharded_scheduler_encode_matches_single_thread(monkeypatch):
     _same("pool", one, pool)
 
 
+def _pend_then_refused_batches(now):
+    """Batch 1: six IPs with two rule1 hits and a benign line each (three
+    rows: admitted at slot_admission_min_estimate 3). Batch 2: one rule1
+    hit from each of those IPs (one row: the estimate decides) and
+    twenty benign one-off IPs. With pipeline_fused false batch 1 takes
+    the classic pend: its windows apply at its drain."""
+    t = now - 4
+    b1, b2 = [], []
+    for k in range(6):
+        ip = f"10.9.0.{k}"
+        b1 += [f"{t + k * 0.01:f} {ip} GET example.com GET /a HTTP/1.1 ua -",
+               f"{t + k * 0.01 + 0.001:f} {ip} GET example.com GET /b HTTP/1.1 ua -",
+               f"{t + k * 0.01 + 0.002:f} {ip} GET news.net GET /n HTTP/1.1 ua -"]
+        b2.append(f"{t + 1 + k * 0.01:f} {ip} GET example.com GET /c HTTP/1.1 ua -")
+    b2 += [f"{t + 1.5:f} 10.8.0.{i} GET news.net GET /z HTTP/1.1 ua -" for i in range(20)]
+    return [b1, b2]
+
+
+PEND_THEN_REFUSED = dict(pipeline_fused=False, traffic_sketch_enabled=True,
+                         slot_admission_enabled=True, slot_admission_min_estimate=3)
+
+
+def test_admission_ahead_of_a_classic_pend_matches_the_jax_scheduler():
+    """A later batch's admission runs while an earlier batch's classic pend
+    still owes its windows: the port keeps the JAX runner's outcome
+    (results, ban log, bans, states), two batches in flight."""
+    now = FIXED_NOW
+    text = pipeline_yaml(**PEND_THEN_REFUSED)
+    batches = _pend_then_refused_batches(now)
+    jax, port = jax_matcher(text), port_matcher(text)
+    want = _drive(jax, batches, now, now, now)
+    got = _drive(port, batches, now, now, now)
+    assert port.test_modes == jax.test_modes == ["classic", "none"]
+    assert got == want
+    _same("admission ahead of a classic pend", jax, port)
+
+
+@pytest.mark.xfail(strict=True, reason=(
+    "shared with the JAX scheduler (ROADMAP Queue 3, reference side): batch 2's "
+    "refused rows step their windows on the host at submit, before batch 1's "
+    "classic pend applies the same IPs' earlier hits at its drain, so the "
+    "hits count out of order and each IP bans on batch 1's line, not batch 2's"))
+def test_admission_ahead_of_a_classic_pend_matches_the_sync_path():
+    """The same batches through the pipeline (two in flight) and through
+    the synchronous consume_lines: the serial path bans each IP on its
+    third hit (/c, batch 2) with its window started at batch 1."""
+    now = FIXED_NOW
+    text = pipeline_yaml(**PEND_THEN_REFUSED)
+    batches = _pend_then_refused_batches(now)
+    port = port_matcher(text)
+    got = _drive(port, batches, now, now, now)
+    sync, want = _sync(text, batches, now)
+    assert sync.test_log.getvalue().count("\n") == 6
+    _same("admission ahead of a classic pend vs sync", sync, port)
+    assert got == want
+
+
 def test_slot_refusal_mid_stream_takes_the_classic_pend():
     """24 slots, batches of many distinct IPs, two in flight: allocations
     refuse while the earlier batch holds its pins, and those batches take
