@@ -27,13 +27,17 @@ their per-site maps); for multi-process serving (`httpapi/workers.py`)
 (`fabric/`, `obs/fleet.py`) the `fabric_*` and `fleet_*` keys and
 `flightrec_fleet_capture`; all with the JAX defaults and checks.
 
-A key the JAX schema reads and the port does not (the modules it
-configures are not ported yet) is named in one warning per load and
-kept in `Config.not_ported`; it is never dropped without a word, and
-never refused, so the deploy file still loads. Keys neither schema
-knows are ignored, as the full schema ignores them. One key selects a
-path the port does not have and fails the load: a `matcher_mesh_devices`
-above 0. `http_workers` loads as in JAX: -1 is one worker per extra core,
+The port reads every key of the JAX schema. A key the JAX schema reads
+and the port does not would be named in one warning per load and kept in
+`Config.not_ported` (`_NOT_PORTED_KEYS`, empty now that every module is
+ported); it is never dropped without a word. Keys neither schema knows
+are ignored, as the full schema ignores them. The mesh keys
+(`matcher_mesh_devices`, `matcher_mesh_rp`, `parallel/mesh.py`) load
+with the JAX checks. `matcher_backend` `auto` and `pallas` select the
+port's one route (the Hopper kernels on the card, their plain versions
+only when the caller asks for the CPU); `xla` and `pallas-interpret`
+fail the load, since they would run the plain versions on the card.
+`http_workers` loads as in JAX: -1 is one worker per extra core,
 and the app serves single-process, with a warning, below -1.
 `load_pages` embeds the two challenge pages as `ConfigHolder` does.
 
@@ -111,6 +115,10 @@ class Config:
     matcher_window_capacity: int = 0  # IP slots; 0 = auto-size
     matcher_prefilter: bool = True
     matcher_prefilter_cand_frac: float = 0.125
+    matcher_backend: str = "auto"  # auto | pallas: the one route the port has
+    # the device mesh (parallel/mesh.py): 0 = single-device; rp 0 = auto
+    matcher_mesh_devices: int = 0
+    matcher_mesh_rp: int = 0
     # the port runs only the single-program chunk commit; "off" (the JAX
     # package's two-program path) is refused by TorchMatcher
     pallas_single_kernel: str = "auto"
@@ -281,6 +289,9 @@ _SCALAR_KEYS = {
     "matcher_window_capacity": int,
     "matcher_prefilter": bool,
     "matcher_prefilter_cand_frac": float,
+    "matcher_backend": str,
+    "matcher_mesh_devices": int,
+    "matcher_mesh_rp": int,
     "pallas_single_kernel": str,
     "matcher_native_parse": bool,
     "slotmgr_native": bool,
@@ -412,12 +423,11 @@ _DICT_KEYS = (
 # keys the port reads besides the two tables above
 _OTHER_KEYS = (
     "regexes_with_rates", "per_site_regexes_with_rates", "kafka_brokers",
-    "matcher_mesh_devices",
 )
 
-# the rest of the JAX schema's keys (`banjax_tpu/config/schema.py:504-577`):
-# read there, not here, until their modules are ported
-_NOT_PORTED_KEYS = frozenset(("matcher_backend", "matcher_mesh_rp"))
+# the rest of the JAX schema's keys (`banjax_tpu/config/schema.py:504-577`),
+# read there and not here: none, every module is ported
+_NOT_PORTED_KEYS: frozenset = frozenset()
 
 _PAGES_DIR = Path(__file__).resolve().parent / "httpapi" / "pages"
 
@@ -475,18 +485,32 @@ def config_from_yaml_text(text: str, standalone_testing_default: bool = False) -
             "config key pallas_single_kernel: expected auto|on|off, got "
             f"{cfg.pallas_single_kernel!r}"
         )
-    # matcher paths the port does not have: refused, not dropped
-    mesh = raw.get("matcher_mesh_devices")
-    if mesh is not None:
-        if isinstance(mesh, bool) or not isinstance(mesh, int) or mesh < 0:
-            raise ValueError(
-                f"config key matcher_mesh_devices: expected a non-negative int, got {mesh!r}"
-            )
-        if mesh > 0:
-            raise ValueError(
-                "config key matcher_mesh_devices: the multi-device mesh is not "
-                "ported; set matcher_mesh_devices: 0"
-            )
+    if cfg.matcher_backend not in ("auto", "xla", "pallas", "pallas-interpret"):
+        raise ValueError(
+            "config key matcher_backend: expected "
+            f"auto|xla|pallas|pallas-interpret, got {cfg.matcher_backend!r}"
+        )
+    if cfg.matcher_backend in ("xla", "pallas-interpret"):
+        raise ValueError(
+            f"config key matcher_backend: {cfg.matcher_backend} would run the plain "
+            "PyTorch versions on the card, which the port never does; use auto or "
+            "pallas (the Hopper kernels on the card, the plain versions only on a "
+            "CPU device)"
+        )
+    if cfg.matcher_mesh_devices < 0 or cfg.matcher_mesh_rp < 0:
+        raise ValueError(
+            "config keys matcher_mesh_devices/matcher_mesh_rp: expected "
+            f"non-negative, got {cfg.matcher_mesh_devices}/{cfg.matcher_mesh_rp}"
+        )
+    if (
+        cfg.matcher_mesh_devices > 0
+        and cfg.matcher_mesh_rp > 0
+        and cfg.matcher_mesh_devices % cfg.matcher_mesh_rp != 0
+    ):
+        raise ValueError(
+            f"config key matcher_mesh_rp: {cfg.matcher_mesh_rp} does not "
+            f"divide matcher_mesh_devices {cfg.matcher_mesh_devices}"
+        )
     if not 1 <= cfg.traffic_sketch_depth <= 8:
         raise ValueError(
             f"config key traffic_sketch_depth: expected 1..8, got {cfg.traffic_sketch_depth}"

@@ -775,6 +775,14 @@ def compile_rules(patterns: Sequence[str], n_shards=1) -> CompiledRules:
     concatenated, the way runner.py builds it). `n_shards="auto"` picks the
     shard count that minimizes total padded words for the match kernel.
     """
+    programs, unsupported = lower_rules(patterns)
+    return pack_programs(programs, n_shards=n_shards, unsupported=unsupported)
+
+
+def lower_rules(patterns: Sequence[str]) -> Tuple[List[Optional[RuleProgram]], Dict[int, str]]:
+    """Lower each pattern to its program: (programs, unsupported), a None
+    program and its reason for each rule the NFA cannot run. The programs
+    can be packed for any shard count (`pack_programs`)."""
     programs: List[Optional[RuleProgram]] = []
     unsupported: Dict[int, str] = {}
     for i, pat in enumerate(patterns):
@@ -783,7 +791,7 @@ def compile_rules(patterns: Sequence[str], n_shards=1) -> CompiledRules:
         except UnsupportedPattern as e:
             programs.append(None)
             unsupported[i] = str(e)
-    return pack_programs(programs, n_shards=n_shards, unsupported=unsupported)
+    return programs, unsupported
 
 
 # The Pallas kernel pads each shard's word slab to this multiple. The VPU

@@ -55,7 +55,18 @@ takes the classic pend: its match at submit, its windows at its drain.
 The JAX runner's two-program fused mode (program A at submit, program B
 at drain) is not ported. Where the JAX runner replays a batch's refused
 rows at submit, the port replays them at the batch's drain, so ban-log
-order stays the synchronous path's. The mesh is not part of this port.
+order stays the synchronous path's.
+
+Mesh mode (`matcher_mesh_devices` > 0, `parallel/mesh.py`): the rules
+compile into rp * k shards (k the least that fits kernel A's words a
+shard), and every match goes through `ShardedMatchBackend` over a dp x rp
+grid of devices (the fused two-stage when `matcher_prefilter` is on).
+As in JAX there is then no single-program commit: each batch takes the
+classic path, its windows committed by `DeviceWindows.apply_bitmap`
+(kernel B). The members' devices come from `mesh_devices` (one a member,
+repeats allowed), else cuda:0 .. cuda:N-1 on the card or N times the CPU;
+a CUDA matcher asking for more members than cards runs single-device,
+with a warning, as JAX does.
 
 Observability (`obs/`): each committed chunk's program runs inside a
 `program-ab-fused` span (a child of the scheduler's `submit`), its drain
@@ -99,6 +110,7 @@ from banjax_tpu_torch.obs import flightrec, provenance, trace
 from banjax_tpu_torch.obs.sketch import TrafficSketch
 from banjax_tpu_torch.obs.stages import StageClock
 from banjax_tpu_torch.obs.stats import MatcherStats
+from banjax_tpu_torch.parallel import mesh
 from banjax_tpu_torch.resilience import failpoints
 from banjax_tpu_torch.resilience.breaker import CLOSED, CircuitBreaker
 from banjax_tpu_torch.resilience.health import HealthStatus
@@ -122,6 +134,7 @@ class TorchMatcher(Matcher):
         decision_lists: StaticDecisionLists,
         device: DeviceLike = None,
         health=None,
+        mesh_devices: Optional[Sequence[DeviceLike]] = None,
     ):
         self.device = resolve_device(device)
         if not config.matcher_device_windows:
@@ -179,16 +192,28 @@ class TorchMatcher(Matcher):
             self._entries.append((None, r))
         patterns = [r.regex_string for _, r in self._entries]
 
+        # mesh mode: the members' devices (None: more than the attached
+        # cards, single-device) and the rule-parallel degree
+        members, rp = None, 0
+        if config.matcher_mesh_devices > 0:
+            members = mesh.mesh_placement(config.matcher_mesh_devices, dev, mesh_devices)
+            if members is not None:
+                rp = mesh.resolve_rp(config.matcher_mesh_devices, config.matcher_mesh_rp)
+
         # one compile; "auto" shards keep every shard within the kernel's
-        # words-per-block (byte classes do not depend on the shard count)
-        self.compiled = compile_rules(patterns, n_shards="auto")
+        # words-per-block, mesh mode packs rp * k shards (byte classes do
+        # not depend on the shard count)
+        if rp:
+            self.compiled = mesh.compile_for_mesh(patterns, rp)
+        else:
+            self.compiled = compile_rules(patterns, n_shards="auto")
         for i, reason in self.compiled.unsupported.items():
             log.info("rule %r falls back to the host regex path: %s",
                      self._entries[i][1].rule, reason)
         self._host_rule_idx = [
             i for i in range(len(self._entries)) if not self.compiled.device_ok[i]
         ]
-        self._nfa = nfa_match.prepare(self.compiled, dev)
+        self._nfa = None if rp else nfa_match.prepare(self.compiled, dev)
         self._max_len = config.matcher_max_line_len
         self._max_batch = max(_MIN_BUCKET, config.matcher_batch_lines)
         self.clock = StageClock()
@@ -255,7 +280,10 @@ class TorchMatcher(Matcher):
         # encode feeds both stages and the single-stage fallback; None when
         # the ruleset has too few filterable rules
         self._prefilter = None
-        if config.matcher_prefilter:
+        self._mesh_matcher = None
+        if rp:
+            self._mesh_matcher = self._build_mesh(config, patterns, members, rp, health)
+        elif config.matcher_prefilter:
             plan = build_plan(
                 patterns,
                 byte_classes=(self.compiled.byte_to_class, self.compiled.n_classes),
@@ -280,6 +308,28 @@ class TorchMatcher(Matcher):
                 clock=self.clock,
             )
 
+    def _build_mesh(self, config, patterns, members, rp, health) -> mesh.ShardedMatchBackend:
+        """The sharded match backend (JAX `runner.py:321-377`): stage 2 of
+        the fused plan packed like the full ruleset, into rp * k shards.
+        Like the JAX matcher, it keeps the backend's default candidate
+        fraction and the 8-line block of the non-compiled backends
+        (`mesh._CAND_FRAC`, `mesh._BLOCK_B`)."""
+        plan = None
+        if config.matcher_prefilter:
+            plan = build_plan(
+                patterns,
+                byte_classes=(self.compiled.byte_to_class, self.compiled.n_classes),
+                stage2_shards=self.compiled.n_shards,
+            )
+        m = mesh.make_mesh(members, rp=rp)
+        backend = mesh.ShardedMatchBackend(
+            self.compiled, m, self._max_len, plan=plan,
+            health=health.register("matcher-mesh") if health is not None else None,
+        )
+        log.info("matcher mesh: dp=%d rp=%d shards=%d prefilter=%s", m.dp, rp,
+                 self.compiled.n_shards, plan is not None)
+        return backend
+
     def close(self) -> None:
         """Release what the matcher holds — the native slot manager, the warm
         tier's mapping and every tensor on the device — so that a reload
@@ -290,6 +340,7 @@ class TorchMatcher(Matcher):
         self.device_windows = None
         self._fw_pipeline = None
         self._prefilter = None
+        self._mesh_matcher = None
         self.traffic_sketch = None
         self._nfa = None
         self._active_table = None
@@ -1286,10 +1337,21 @@ class TorchMatcher(Matcher):
         if encoded is None:
             encoded = encode_for_match(self.compiled, [p.rest for _, p in work], self._max_len)
         cls_ids, lens, host_eval = encoded
+        device_rows = np.flatnonzero(~host_eval)
         pend = {"n": n, "work": work, "cls": cls_ids, "lens": lens, "host_eval": host_eval,
-                "device_rows": np.flatnonzero(~host_eval), "chunks": None}
-        if self._prefilter is not None:
+                "device_rows": device_rows, "kind": "single", "chunks": None}
+        if self._mesh_matcher is not None:
+            # one sharded submit per chunk of device rows, none waiting
+            # for the card: collect merges each back into line order
+            pend["kind"] = "mesh"
+            pend["chunks"] = [
+                (rows, self._mesh_matcher.submit(cls_ids[rows], lens[rows]))
+                for rows in (device_rows[s : s + self._max_batch]
+                             for s in range(0, len(device_rows), self._max_batch))
+            ]
+        elif self._prefilter is not None:
             dev_lens = np.where(host_eval, 0, lens)
+            pend["kind"] = "prefilter"
             pend["chunks"] = [
                 (sl, self._prefilter.submit(cls_ids[sl], dev_lens[sl]))
                 for sl in (slice(s, min(n, s + self._max_batch))
@@ -1301,7 +1363,11 @@ class TorchMatcher(Matcher):
         n, work = pend["n"], pend["work"]
         cls_ids, lens, host_eval = pend["cls"], pend["lens"], pend["host_eval"]
         device_rows = pend["device_rows"]
-        if pend["chunks"] is not None:
+        if pend["kind"] == "mesh":
+            bits = np.zeros((n, self.compiled.n_rules), dtype=np.uint8)
+            for rows, p in pend["chunks"]:
+                bits[rows] = self._mesh_matcher.collect(p)
+        elif pend["kind"] == "prefilter":
             try:
                 bits = np.zeros((n, self.compiled.n_rules), dtype=np.uint8)
                 for sl, p in pend["chunks"]:

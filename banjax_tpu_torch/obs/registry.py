@@ -13,8 +13,7 @@ the port unchanged. Two namespaces share one declaration:
   * `prom`: the `banjax_*` family `/metrics` exposes
     (`obs/exposition.py`). Interval-window keys are line-only.
 
-Not declared: the families of the module the port does not have (the
-mesh), and the keys whose meaning in the port would differ
+Not declared: the keys whose meaning in the port would differ
 from the JAX key's: `MatcherCpuFallbackBatches` (an open breaker refuses,
 it never reroutes to the host), `MatcherBudgetTrips` (a budget breach is
 counted but is no breaker failure), the transfer-byte keys
@@ -151,6 +150,19 @@ FAMILIES: List[Family] = [
     Family(GAUGE, "warm-tier entry capacity",
            line_key="WarmTierCapacity",
            prom="banjax_warm_tier_capacity"),
+    # ---- mesh ----
+    Family(COUNTER, "sharded-mesh batches served by the fused two-stage path",
+           line_key="MeshFusedBatches", prom="banjax_mesh_fused_batches_total"),
+    Family(COUNTER, "sharded-mesh batches that fell back single-stage",
+           line_key="MeshFallbackBatches",
+           prom="banjax_mesh_fallback_batches_total"),
+    Family(GAUGE, "EWMA mesh submit wall time (ms)",
+           line_key="MeshSubmitMsEwma", prom="banjax_mesh_submit_ms_ewma"),
+    Family(GAUGE, "EWMA mesh d2h merge wall time (ms)",
+           line_key="MeshMergeMsEwma", prom="banjax_mesh_merge_ms_ewma"),
+    Family(GAUGE, "slowest shard's d2h pull in the last merge (ms)",
+           line_key="MeshShardMergeMsMax",
+           prom="banjax_mesh_shard_merge_ms_max"),
     Family(GAUGE, "1 when the two-stage literal prefilter is active",
            line_key="PrefilterActive",
            prom="banjax_prefilter_active"),

@@ -34,6 +34,10 @@ _DEVICE_RING = 256   # recent device-stage latencies for the pipeline p99
 _E2E_RING = 4096     # recent read -> drain latencies
 
 
+def _r3(v):
+    return None if v is None else round(v, 3)
+
+
 def _pct(sorted_xs: List[float], q: float) -> Optional[float]:
     n = len(sorted_xs)
     return sorted_xs[min(n - 1, int(n * q))] if n else None
@@ -95,6 +99,16 @@ class MatcherStats:
                 out["WarmTierOccupancy"] = device_windows.warm_occupancy
                 out["WarmTierCapacity"] = device_windows.warm_capacity
         if matcher is not None:
+            mm = getattr(matcher, "_mesh_matcher", None)
+            if mm is not None:
+                out["MeshFusedBatches"] = mm.fused_batches
+                out["MeshFallbackBatches"] = mm.fallback_batches
+                # sharded submit and collect: the dispatch wall time, the
+                # per-row pulls and the line-order merge
+                out["MeshSubmitMsEwma"] = _r3(mm.submit_ms_ewma)
+                out["MeshMergeMsEwma"] = _r3(mm.merge_ms_ewma)
+                shard_ms = mm.last_shard_merge_ms
+                out["MeshShardMergeMsMax"] = _r3(max(shard_ms) if shard_ms else None)
             if getattr(matcher, "_prefilter", None) is not None:
                 out["PrefilterActive"] = True
             fw = getattr(matcher, "_fw_pipeline", None)

@@ -125,8 +125,18 @@ a planned leave); recall 1.0, every ledger closed, no worker left. Then
 `ua_fused`: BASELINE config 4 at 500,000 lines from 100,000 IPs through
 `DeviceUAMatcher` (every UA decision equal to `check_ua_decision`, the
 rate columns equal to a rate-only kernel-A pass) and a TorchMatcher with
-auto-sized device windows (the oracle's bans, no eviction). Each prints
-its seconds and adds its launches of A, B and C to `launches_by_path`.
+auto-sized device windows (the oracle's bans, no eviction). Then `mesh`:
+the device mesh (`parallel/mesh.py`) on the main path's rules and chunks,
+every member on the one card: `ShardedMatchBackend` for 2 x 2 and 2 x 4
+grids on a traffic chunk (fused two-stage) and an attack chunk (overflow,
+single-stage fallback), bits identical to the same backend on the CPU and
+to the single-device matcher, kernel A launched by every member and held
+to its plain version at the members' shapes; a 2 x 2 mesh-mode
+TorchMatcher over 16 chunks and the attack chunk, synchronous and through
+`PipelineScheduler`, with the single-device matcher's ban log and result
+keys and nothing shed; and the deploy file with `matcher_mesh_devices: 1`
+as a 1 x 1 mesh. Each prints its seconds and adds its launches of A, B
+and C to `launches_by_path`.
 
 The kernel phases time each shape three ways: `ms` (CUDA events around
 20 back-to-back wrapper calls; the host's enqueue bounds it when slower
@@ -344,6 +354,21 @@ UA_FUSED = dict(
     lines=500_000,
     ips=100_000,
     batch=4096,
+)
+# the device mesh on the main path's width: the deploy configuration's
+# rules and chunks, grids of members all on the one card
+MESH = dict(
+    n_rules=1000,
+    batch_lines=4096,
+    max_line_len=256,
+    capacity=65536,
+    chunks=16,             # traffic chunks, plus one all-attack chunk
+    n_ips=50_000,
+    n_offenders=40,
+    offender_hits=40,
+    chunks_per_call=4,
+    grids=((2, 2), (2, 4)),
+    matcher_grid=(2, 2),
 )
 
 SHA_HOST = "sha.example"   # the one host in sitewide_sha_inv_list (block)
@@ -4626,6 +4651,292 @@ def run_ua_fused(dev, lines, ips, batch) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ the device mesh
+
+
+def run_mesh(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips, n_offenders,
+             offender_hits, chunks_per_call, grids, matcher_grid) -> tuple:
+    """The device mesh (`parallel/mesh.py`) on `dev`, every member on it.
+
+    (a) `ShardedMatchBackend` for each dp x rp grid on the deploy rules
+    (rp * k shards, k the least that fits kernel A), on one chunk of
+    traffic at 2 % attack (fused two-stage) and one of nothing but attack
+    lines (candidate overflow, single-stage fallback): bits identical to
+    the same backend on the CPU (plain versions) and to the single-device
+    TorchMatcher's `_match_bits`; every member launched kernel A. Kernel A
+    at the members' shapes against its plain version, timed.
+    (b) A mesh-mode TorchMatcher (`matcher_grid`) over `chunks` chunks and
+    the attack chunk: ban log and result keys identical to a single-device
+    TorchMatcher fed the same lines, then the same through
+    `PipelineScheduler` with nothing shed; lines/s of both.
+    (c) The deploy file with `matcher_mesh_devices: 1` gives a 1 x 1 mesh
+    on the card. Returns (launches of A, B and C on (b) and (c), kernel A's
+    rows at the mesh shapes)."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from banjax_tpu_torch import workload
+    from banjax_tpu_torch.config import config_from_yaml_text
+    from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
+    from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
+    from banjax_tpu_torch.effectors.banner import Banner
+    from banjax_tpu_torch.matcher import encode
+    from banjax_tpu_torch.matcher.kernels import nfa_match
+    from banjax_tpu_torch.matcher.prefilter import build_plan
+    from banjax_tpu_torch.matcher.runner import OLD_LINE_CUTOFF_SECONDS, TorchMatcher
+    from banjax_tpu_torch.matcher.workset import ListWork
+    from banjax_tpu_torch.parallel import mesh
+    from banjax_tpu_torch.pipeline.scheduler import PipelineScheduler
+
+    cpu = torch.device("cpu")
+    patterns = workload.generate_rules(n_rules, seed=SEED)
+    now = time.time()
+    lines = workload.access_log(
+        chunks * batch_lines, patterns, now, seed=SEED, n_ips=n_ips,
+        n_offenders=n_offenders, offender_hits=offender_hits,
+    )
+    attack = workload.attack_lines(batch_lines, patterns, now, seed=SEED)
+    burst_at = (chunks // 2) * batch_lines
+    lines[burst_at:burst_at] = attack
+
+    def yaml_for(**keys):
+        return workload.rules_config(
+            patterns, seed=SEED, matcher="tpu", matcher_batch_lines=batch_lines,
+            matcher_max_line_len=max_line_len, matcher_device_windows=True,
+            matcher_window_capacity=capacity, matcher_prefilter=True,
+            pallas_single_kernel="on", **keys,
+        )
+
+    def new_matcher(text, **kw):
+        cfg = config_from_yaml_text(text)
+        log = io.StringIO()
+        banner = Banner(DynamicDecisionLists(start_sweeper=False), log, io.StringIO())
+        return TorchMatcher(cfg, banner, StaticDecisionLists(cfg), device=dev, **kw), log
+
+    def reset_launches():
+        for lib in kernel_libs().values():
+            lib.reset_launches()
+
+    single, single_log = new_matcher(yaml_for())
+
+    # ---- (a) the backend on each grid against the CPU and one device ----
+    inputs = {}
+    for name, chunk in (("traffic", lines[:batch_lines]), ("attack", attack)):
+        work = ListWork()
+        for i, ln in enumerate(chunk):
+            work.append((i, encode.parse_line(ln, now, OLD_LINE_CUTOFF_SECONDS)))
+        enc = encode.encode_for_match(single.compiled, [p.rest for _, p in work], max_line_len)
+        rows = np.flatnonzero(~enc[2])
+        want = single._match_bits(work, enc)[rows]
+        want[:, single._host_rule_idx] = 0
+        inputs[name] = (enc[0][rows], enc[1][rows], want)
+    grid_rows = {}
+    shape_rows = {}
+    for dp, rp in grids:
+        tag = f"{dp}x{rp}"
+        t0 = time.perf_counter()
+        compiled = mesh.compile_for_mesh(patterns, rp)
+        plan = build_plan(patterns, byte_classes=(compiled.byte_to_class, compiled.n_classes),
+                          stage2_shards=compiled.n_shards)
+        card = mesh.ShardedMatchBackend(compiled, mesh.make_mesh([dev] * (dp * rp), rp),
+                                        max_line_len, plan=plan)
+        host = mesh.ShardedMatchBackend(compiled, mesh.make_mesh([cpu] * (dp * rp), rp),
+                                        max_line_len, plan=plan)
+        setup_s = time.perf_counter() - t0
+        row = {"dp": dp, "rp": rp, "shards": compiled.n_shards,
+               "shards_per_member": compiled.n_shards // rp,
+               "words_per_shard": compiled.words_per_shard,
+               "stage2_shards_per_member": plan.stage2.n_shards // rp, "setup_s": setup_s}
+        member_shapes = {}
+        for name, (cls, lens, want) in inputs.items():
+            before = (card.fused_batches, card.fallback_batches)
+            ms = []
+            for _ in range(2):  # the first call pays one-time costs
+                sync(dev)
+                t0 = time.perf_counter()
+                pend = card.submit(cls, lens)
+                got = card.collect(pend)
+                sync(dev)
+                ms.append(1e3 * (time.perf_counter() - t0))
+            # a row's lines, and its candidate slots
+            member_shapes[name] = (pend["Bp"] // card.dp, pend["K"])
+            t0 = time.perf_counter()
+            plain = host.match_bits(cls, lens)
+            cpu_s = time.perf_counter() - t0
+            row[name] = {
+                "lines": int(cls.shape[0]), "first_ms": ms[0], "ms": ms[1], "cpu_plain_s": cpu_s,
+                "fused": (card.fused_batches - before[0]) // 2,
+                "fallback": (card.fallback_batches - before[1]) // 2,
+                "equal_cpu": bool(np.array_equal(got, plain)),
+                "equal_single_device": bool(np.array_equal(got, want)),
+                "rows_matching": int(got.any(axis=1).sum()),
+            }
+            check(row[name]["equal_cpu"], f"mesh {tag} ({name}): bits equal the CPU's")
+            check(row[name]["equal_single_device"],
+                  f"mesh {tag} ({name}): bits equal the single-device matcher's")
+        row["fused_batches"], row["fallback_batches"] = card.fused_batches, card.fallback_batches
+        row["host_fused_batches"] = host.fused_batches
+        row["host_fallback_batches"] = host.fallback_batches
+        row["row_launches"], row["member_launches"] = card.row_launches, card.member_launches
+        row["last_shard_merge_ms"] = card.last_shard_merge_ms
+        grid_rows[tag] = row
+        check(card.fused_batches > 0 and card.fallback_batches > 0,
+              f"mesh {tag}: fused and fallback batches ({card.fused_batches}, "
+              f"{card.fallback_batches})")
+        check((2 * host.fused_batches, 2 * host.fallback_batches)
+              == (card.fused_batches, card.fallback_batches),
+              f"mesh {tag}: the CPU fused and fell back as the card did")
+        check(dev.type != "cuda" or (min(card.row_launches) > 0
+                                     and min(min(r) for r in card.member_launches) > 0),
+              f"mesh {tag}: kernel A launched by every row and member: {card.member_launches}")
+        # kernel A at the members' shapes: stage 2 over a row's candidate
+        # slots, the single-stage fallback over a row's lines
+        b_local, K = member_shapes["attack"]
+        for name, slab, src, n in (("stage2_member", card._slabs2[0][0], "attack", K),
+                                   ("single_member", card._slabs[0][0], "traffic", b_local)):
+            cls_np, lens_np, _ = inputs[src]
+            L_p = min(cls_np.shape[1], -(-int(lens_np[:n].max()) // 32) * 32)
+            c = torch.from_numpy(np.ascontiguousarray(cls_np[:n, :L_p])).to(dev)
+            ln = torch.from_numpy(np.ascontiguousarray(lens_np[:n])).to(dev)
+            got = nfa_match.accept_words(slab, c, ln)
+            want = nfa_match.accept_words_plain(slab, c, ln)
+            sync(dev)
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            check(err == 0, f"kernel A (mesh {tag} {name}) is bit-identical to its plain version")
+            bound, by = nfa_bound_ms(slab, c, ln)
+            shape_rows[f"mesh_{tag}_{name}"] = {
+                "lines": n, "bytes": L_p, "words": slab.n_words, "shards": slab.n_shards,
+                "classes": slab.n_classes, "carry": not slab.carry_free,
+                "line_bytes": line_bytes(c, ln), "max_abs_err": err,
+                "lines_per_thread": nfa_match.lines_per_thread(slab, n, dev),
+                "ms": time_ms(lambda: nfa_match.accept_words(slab, c, ln), dev, 20),
+                "device_ms": graph_ms(lambda: nfa_match.accept_words(slab, c, ln), dev),
+                "plain_ms": time_ms(lambda: nfa_match.accept_words_plain(slab, c, ln), dev, 2),
+                "bound_ms": bound, "bound_by": by,
+            }
+        del card, host
+
+    # ---- (b) the mesh-mode matcher against the single-device one ----
+    dp, rp = matcher_grid
+    mesh_yaml = yaml_for(matcher_mesh_devices=dp * rp, matcher_mesh_rp=rp)
+    calls = [lines[s : s + chunks_per_call * batch_lines]
+             for s in range(0, len(lines), chunks_per_call * batch_lines)]
+
+    def drive(m):
+        keys = []
+        sync(dev)
+        t0 = time.perf_counter()
+        for batch in calls:
+            keys += [result_key(r) for r in m.consume_lines(batch, now_unix=now)]
+        sync(dev)
+        return keys, time.perf_counter() - t0
+
+    # in turns: one device, the mesh, the pipelined mesh, one device again
+    single_keys, single_s = drive(single)
+    single.close()
+    del single
+    reset_launches()
+    mm_matcher, mesh_log = new_matcher(mesh_yaml, mesh_devices=[dev] * (dp * rp))
+    mm = mm_matcher._mesh_matcher
+    check(mm is not None and (mm.dp, mm.rp) == (dp, rp), "the mesh-mode matcher engaged")
+    check(mm_matcher._fw_pipeline is None and mm_matcher._prefilter is None,
+          "the mesh matcher commits on the classic path")
+    mesh_keys, mesh_s = drive(mm_matcher)
+    sync_launches = launch_counts()
+    sync_row = {"wall_s": mesh_s, "lines_per_s": len(lines) / mesh_s,
+                "fused_batches": mm.fused_batches, "fallback_batches": mm.fallback_batches,
+                "row_launches": list(mm.row_launches),
+                "member_launches": [list(r) for r in mm.member_launches],
+                "match_submits": mm.fused_batches + mm.fallback_batches,
+                "submit_ms_ewma": mm.submit_ms_ewma, "merge_ms_ewma": mm.merge_ms_ewma,
+                "last_shard_merge_ms": mm.last_shard_merge_ms,
+                "host_us_per_line_by_stage": stage_us(mm_matcher, len(lines)),
+                "launches": sync_launches}
+    same_keys = mesh_keys == single_keys
+    same_log = mesh_log.getvalue() == single_log.getvalue()
+    mm_matcher.close()
+    del mm_matcher
+
+    # the same lines through the streaming pipeline
+    reset_launches()
+    pm, pipe_log = new_matcher(mesh_yaml, mesh_devices=[dev] * (dp * rp))
+    drained = []
+    sch = PipelineScheduler(lambda: pm, on_results=lambda bl, rs: drained.append(len(bl)),
+                            now_fn=lambda: now)
+    sch.start()
+    sync(dev)
+    t0 = time.perf_counter()
+    try:
+        for s in range(0, len(lines), batch_lines):
+            sch.submit(lines[s : s + batch_lines])
+        flushed = sch.flush(300)
+    finally:
+        sch.stop()
+    sync(dev)
+    pipe_s = time.perf_counter() - t0
+    shed = sch.stats.peek()["PipelineShedLines"]
+    pipe_launches = launch_counts()
+    pipe_row = {"wall_s": pipe_s, "lines_per_s": len(lines) / pipe_s, "batches": len(drained),
+                "shed_lines": shed, "fused_batches": pm._mesh_matcher.fused_batches,
+                "fallback_batches": pm._mesh_matcher.fallback_batches,
+                "launches": pipe_launches}
+    same_pipe_log = pipe_log.getvalue() == mesh_log.getvalue()
+    pm.close()
+    del pm
+    again, again_log = new_matcher(yaml_for())
+    again_keys, again_s = drive(again)
+    same_again = again_keys == single_keys and again_log.getvalue() == single_log.getvalue()
+    again.close()
+    del again
+
+    # ---- (c) the deploy file's mesh keys: one member on the card ----
+    with open("deploy/banjax-config.yaml") as f:
+        raw = yaml.safe_load(f)
+    raw.update(matcher_mesh_devices=1)
+    reset_launches()
+    dm, _ = new_matcher(yaml.safe_dump(raw))
+    dmm = dm._mesh_matcher
+    engaged = dmm is not None and dmm.mesh.grid == ((dev,),)
+    res = dm.consume_lines(lines[:batch_lines], now_unix=now) if engaged else []
+    deploy_launches = launch_counts()
+    deploy_row = {"engaged": engaged, "grid": None if dmm is None else [dmm.dp, dmm.rp],
+                  "lines": len(res), "errors": sum(r.error for r in res),
+                  "member_launches": None if dmm is None else dmm.member_launches,
+                  "launches": deploy_launches}
+    dm.close()
+    del dm
+
+    emit({"phase": "mesh", "rules": n_rules, "batch_lines": batch_lines,
+          "lines": len(lines), "window_slots": capacity, "tolerance": 0, "grids": grid_rows,
+          "matcher": {"grid": [dp, rp], "single_device": {
+              "wall_s": single_s, "lines_per_s": len(lines) / single_s,
+              "again_wall_s": again_s, "again_lines_per_s": len(lines) / again_s,
+              "again_identical": same_again},
+              "mesh_sync": sync_row, "mesh_pipelined": pipe_row,
+              "result_keys_identical": same_keys, "ban_log_identical": same_log,
+              "pipelined_ban_log_identical": same_pipe_log,
+              "ban_log_lines": mesh_log.getvalue().count("\n")},
+          "deploy_1x1": deploy_row})
+    check(same_keys and same_log, "the mesh matcher's results and ban log equal one device's")
+    check(same_again, "a second single-device matcher wrote the first one's ban log")
+    check(mesh_log.getvalue().count("\n") > 0, "the mesh matcher banned the offenders")
+    check(flushed and shed == 0 and same_pipe_log,
+          f"the pipelined mesh wrote the same ban log, nothing shed ({shed})")
+    check(sync_row["fused_batches"] > 0 and sync_row["fallback_batches"] > 0,
+          "the mesh matcher fused and fell back")
+    check(dev.type != "cuda" or (min(sync_row["row_launches"]) > 0
+                                 and min(min(r) for r in sync_row["member_launches"]) > 0
+                                 and sync_launches["window_scan"] > 0),
+          f"every member of the mesh matcher launched kernel A, and kernel B ran: {sync_row}")
+    check(engaged and deploy_row["errors"] == 0, "the deploy file's keys engaged a 1 x 1 mesh")
+    check(dev.type != "cuda" or dmm.member_launches[0][0] > 0,
+          "the 1 x 1 mesh launched kernel A")
+    launches = {k: sync_launches[k] + pipe_launches[k] + deploy_launches[k]
+                for k in sync_launches}
+    return launches, shape_rows
+
+
 def main() -> int:
     import torch
 
@@ -4686,6 +4997,9 @@ def main() -> int:
     t0 = time.perf_counter()
     ua_fused = run_ua_fused(dev, **UA_FUSED)
     emit({"phase": "ua_fused_seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    meshed, mesh_shapes = run_mesh(dev, **MESH)
+    emit({"phase": "mesh_seconds", "seconds": time.perf_counter() - t0})
     for k in kernels:
         k.setdefault("launches_by_path", {"challenge_path": k["launches"]})
         k["launches_by_path"]["service"] = service[k["name"]]
@@ -4700,9 +5014,16 @@ def main() -> int:
         k["launches_by_path"]["scenarios"] = scenarios[k["name"]]
         k["launches_by_path"]["fabric_dryrun"] = dryrun[k["name"]]
         k["launches_by_path"]["ua_fused"] = ua_fused[k["name"]]
+        # the device mesh's matchers (the backend checks against the CPU
+        # are comparisons, not counted)
+        k["launches_by_path"]["mesh"] = meshed[k["name"]]
         k["launches"] += (service[k["name"]] + pipeline[k["name"]] + observed[k["name"]]
                           + kafka[k["name"]] + served[k["name"]] + fabric[k["name"]]
-                          + scenarios[k["name"]] + dryrun[k["name"]] + ua_fused[k["name"]])
+                          + scenarios[k["name"]] + dryrun[k["name"]] + ua_fused[k["name"]]
+                          + meshed[k["name"]])
+        if k["name"] == "nfa_match":
+            k["shapes"].update(mesh_shapes)
+            k["max_abs_err"] = max(r["max_abs_err"] for r in k["shapes"].values())
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The service's log path as a whole: the port's `BanjaxApp(device="cpu")`
-against the JAX package's `BanjaxApp` (`matcher: tpu`, `matcher_backend:
-xla`), both tailing one access log — the tailer and `_consume_lines`
+against the JAX package's `BanjaxApp` (`matcher: tpu`, its XLA scan:
+`matcher_backend: auto` on the CPU), both tailing one access log — the tailer and `_consume_lines`
 only, no HTTP.
 
 The same seeded lines are appended batch by batch; after each batch the
@@ -39,9 +39,10 @@ def _port_ipset_off(monkeypatch):
     monkeypatch.setattr(port_cli, "init_ipset", lambda *a, **k: None)
 
 
+# (no matcher_backend: the JAX "auto" is its XLA scan on the CPU, and the
+# port refuses "xla")
 APP_KEYS = """
 matcher: tpu
-matcher_backend: xla
 matcher_device_windows: true
 matcher_prefilter: true
 pallas_single_kernel: "on"

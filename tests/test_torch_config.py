@@ -3,7 +3,10 @@ every key the JAX schema reads and the port does not is named (one
 warning, `Config.not_ported`), the service's and the pipeline's keys are
 read with the JAX defaults and checks, and so are the kernel edge's, the
 observability plane's and the Kafka channel's, `pipeline_enabled: true`
-loads, and `http_workers` loads as the JAX schema reads it."""
+loads, and `http_workers` loads as the JAX schema reads it. Every module
+is ported, so no key is left unread: the mesh keys load with the JAX
+checks, and `matcher_backend` refuses the JAX-only `xla` and
+`pallas-interpret`."""
 
 import logging
 from pathlib import Path
@@ -83,7 +86,7 @@ def test_every_jax_schema_key_is_read_or_named_not_ported():
     assert set(OBS_KEYS) <= read
     assert set(KAFKA_KEYS) <= read
     assert set(FABRIC_KEYS) <= read
-    assert port_config._NOT_PORTED_KEYS == {"matcher_backend", "matcher_mesh_rp"}
+    assert port_config._NOT_PORTED_KEYS == set()
 
 
 def test_deploy_file_names_exactly_the_keys_the_port_does_not_read(caplog):
@@ -94,13 +97,13 @@ def test_deploy_file_names_exactly_the_keys_the_port_does_not_read(caplog):
         cfg = config_from_yaml_text(text)
     assert cfg.not_ported == expected
     assert {"serve_fastpath_enabled", "server_log_file", "banning_log_file"}.isdisjoint(expected)
-    assert expected == ["matcher_backend"]
+    assert expected == []
     assert set(FABRIC_KEYS).isdisjoint(expected)
     assert set(PIPELINE_KEYS).isdisjoint(expected)
     assert set(OBS_KEYS).isdisjoint(expected)
     assert set(KAFKA_KEYS).isdisjoint(expected) and "http_workers" not in expected
     warnings = [r.getMessage() for r in caplog.records if "not ported" in r.getMessage()]
-    assert warnings == ["not ported: " + ", ".join(expected)]
+    assert warnings == []
 
 
 def test_service_keys_match_the_jax_schema():
@@ -339,4 +342,43 @@ def test_fabric_keys_are_checked_as_jax_checks_them(text, match):
     with pytest.raises(ValueError, match=match):
         jax_schema.config_from_yaml_text(text)
     with pytest.raises(ValueError, match=match):
+        config_from_yaml_text(text)
+
+
+MESH_KEYS = ("matcher_backend", "matcher_mesh_devices", "matcher_mesh_rp")
+
+
+@pytest.mark.parametrize("text", [
+    "", "deploy", "matcher_mesh_devices: 4\nmatcher_mesh_rp: 2", "matcher_mesh_devices: 8",
+    "matcher_backend: pallas\nmatcher_mesh_devices: 1",
+])
+def test_mesh_keys_load_as_jax(text):
+    text = DEPLOY.read_text() if text == "deploy" else text
+    cfg, jax_cfg = config_from_yaml_text(text), jax_schema.config_from_yaml_text(text)
+    for key in MESH_KEYS:
+        assert getattr(cfg, key) == getattr(jax_cfg, key), key
+    assert cfg.not_ported == []
+
+
+@pytest.mark.parametrize("text, match", [
+    ("matcher_mesh_devices: -1", "matcher_mesh_devices/matcher_mesh_rp: expected non-negative"),
+    ("matcher_mesh_rp: -2", "matcher_mesh_devices/matcher_mesh_rp: expected non-negative"),
+    ("matcher_mesh_devices: 4\nmatcher_mesh_rp: 3",
+     "matcher_mesh_rp: 3 does not divide matcher_mesh_devices 4"),
+    ("matcher_mesh_rp: '2'", "matcher_mesh_rp"),
+    ("matcher_backend: cuda", "expected auto|xla|pallas|pallas-interpret"),
+])
+def test_mesh_keys_are_checked_as_jax_checks_them(text, match):
+    with pytest.raises(ValueError, match=match):
+        jax_schema.config_from_yaml_text(text)
+    with pytest.raises(ValueError, match=match):
+        config_from_yaml_text(text)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas-interpret"])
+def test_jax_only_backends_fail_the_load(backend):
+    """JAX loads them; the port would run its plain versions on the card."""
+    text = f"matcher_backend: {backend}"
+    assert jax_schema.config_from_yaml_text(text).matcher_backend == backend
+    with pytest.raises(ValueError, match="plain PyTorch versions on the card"):
         config_from_yaml_text(text)

@@ -392,7 +392,7 @@ def _deploy_yaml():
     with open("deploy/banjax-config.yaml") as f:
         raw = yaml.safe_load(f)
     raw.update(
-        matcher_backend="pallas-interpret", matcher_native_parse=False,
+        matcher_native_parse=False,
         slotmgr_native=False, traffic_sketch_enabled=False,
         slot_admission_enabled=False, warm_tier_enabled=False,
         matcher_batch_lines=64, matcher_max_line_len=128,
@@ -421,6 +421,7 @@ def test_log_path_challenges_reach_the_chain_identically(pinned):
     jax_banner = JaxBanner(JaxDynamic(start_sweeper=False), io.StringIO(), io.StringIO(),
                            ipset_instance=None)
     jcfg = jax_config(yaml_text)
+    jcfg.matcher_backend = "pallas-interpret"  # the JAX side's; the port refuses it
     TpuMatcher(jcfg, jax_banner, JaxStatic(jcfg), RegexRateLimitStates()).consume_lines(
         lines, now_unix=NOW)
     jax_state, jax_logs = _jax_state(yaml_text, jax_banner)

@@ -18,7 +18,7 @@ tolerance is exact equality throughout.
 - The shm ring: frames round-trip through the port's ring, and through a
   ring the JAX package attached.
 - The whole app: three port `BanjaxApp(device="cpu")` shards, then three
-  JAX `BanjaxApp` shards (`matcher_backend: xla`), tail their own logs in
+  JAX `BanjaxApp` shards (the XLA scan, `matcher_backend: auto`), tail their own logs in
   this process, each fabric against a fake Kafka broker of its own; each
   IP enters through one log. Per IP the ban-log lines (log times relative
   to the run's start) equal the JAX fabric's and a single-process port

@@ -54,7 +54,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert len(files) > 20
     scanned = {p.relative_to(ROOT / "banjax_tpu_torch").parts[0] for p in files[:-1]}
     assert scanned >= {"challenge", "crypto", "decisions", "effectors", "fabric", "httpapi",
-                       "ingest", "matcher", "native", "obs", "utils"}
+                       "ingest", "matcher", "native", "obs", "parallel", "utils"}
     names = {str(p.relative_to(ROOT)) for p in files}
     assert names >= {"banjax_tpu_torch/ingest/kafka_wire.py", "banjax_tpu_torch/ingest/kafka_io.py",
                      "banjax_tpu_torch/httpapi/workers.py",
@@ -65,7 +65,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "membership", "service", "worker", "harness")} | {
         f"banjax_tpu_torch/scenarios/{m}.py" for m in (
             "__init__", "shapes", "oracle", "runtime", "chaos", "stats")} | {
-        "banjax_tpu_torch/matcher/fused.py", "banjax_tpu_torch/ingest/broker_standin.py"}
+        "banjax_tpu_torch/matcher/fused.py", "banjax_tpu_torch/ingest/broker_standin.py",
+        "banjax_tpu_torch/parallel/__init__.py", "banjax_tpu_torch/parallel/mesh.py"}
     bad = [(str(p.relative_to(ROOT)), m) for p in files for m in _imports(p) if _forbidden(m)]
     assert not bad, bad
 

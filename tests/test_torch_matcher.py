@@ -46,7 +46,6 @@ def _one_torch_thread():
 
 DEPLOY_KEYS = """
 matcher: tpu
-matcher_backend: pallas-interpret
 matcher_device_windows: true
 matcher_prefilter: true
 pallas_single_kernel: "on"
@@ -81,6 +80,8 @@ class _RecordingBanner(JaxBanner):
 
 def _jax(cls, yaml_text):
     cfg = jax_config(yaml_text)
+    # the JAX side's backend: the port refuses this key's JAX-only values
+    cfg.matcher_backend = "pallas-interpret"
     log = io.StringIO()
     banner = _RecordingBanner(log)
     states = RegexRateLimitStates()

@@ -3,8 +3,8 @@ package's, on the CPU.
 
 - The registry: every family the port declares equals the JAX entry
   (name, type, help, label names), and the JAX families it leaves out are
-  exactly those of modules not ported (the mesh, the scenarios) plus the
-  keys whose meaning would differ; the fabric and fleet families are in; the histograms, `MatcherStats` and `PipelineStats` views and
+  exactly the keys whose meaning would differ (every module is ported,
+  the mesh's families are in); the fabric and fleet families are in; the histograms, `MatcherStats` and `PipelineStats` views and
   the strict text-format parser behave as JAX's.
 - The tracer and the provenance ledger on one call sequence; the SLO
   engine's burn rates and breaches on a virtual clock; the flight
@@ -89,8 +89,8 @@ DIFFERENT_MEANING = {
     "MatcherD2hBytesTotal", "MatcherH2dBytesPerBatch", "MatcherD2hBytesPerBatch",
     "SingleKernelD2hBytesPerBatch", "SketchAdmissionFpRate",
 }
-# JAX families of modules the port does not have
-NOT_PORTED_MODULES = (("Mesh", "banjax_mesh_"),)
+# JAX families of modules the port does not have: none
+NOT_PORTED_MODULES = ()
 
 
 def _key(f):
@@ -125,6 +125,8 @@ def test_registry_leaves_out_exactly_the_unported_families():
               if f.line_key.startswith("Fabric") or f.prom.startswith(("banjax_fabric_",
                                                                         "banjax_fleet_"))]
     assert len(fabric) > 30 and all(_key(f) in port for f in fabric)
+    mesh = [f for f in jax_reg.FAMILIES if f.line_key.startswith("Mesh")]
+    assert len(mesh) == 5 and all(_key(f) in port for f in mesh)
     assert port_reg.FRAME_BYTES_BUCKETS == jax_reg.FRAME_BYTES_BUCKETS
 
 
@@ -542,7 +544,7 @@ def test_ban_logs_identical_with_tracing_on_and_off():
 
 
 def test_jax_scheduler_records_the_same_span_tree():
-    """The JAX scheduler over the same stream (matcher_backend: xla, the
+    """The JAX scheduler over the same stream (its XLA scan, the
     single-program commit) records the span names and parents the port's
     does."""
     from tests.test_torch_pipeline import (

@@ -1,6 +1,6 @@
 """The streaming pipeline slice: the port's split protocol, scheduler and
-sizer against the JAX package's (`TpuMatcher` with `matcher_backend:
-xla` and the single-program commit, `PipelineScheduler`,
+sizer against the JAX package's (`TpuMatcher` with its XLA scan
+(`matcher_backend: auto` on the CPU) and the single-program commit, `PipelineScheduler`,
 `AdaptiveBatchSizer`), and against the port's own synchronous path.
 
 - The split protocol driven by hand, two batches in flight, through a
@@ -86,9 +86,10 @@ def _disarmed():
     jax_fp.disarm()
     port_fp.disarm()
 
+# (no matcher_backend: the JAX "auto" is its XLA scan on the CPU, and the
+# port refuses "xla")
 PIPELINE_KEYS = """
 matcher: tpu
-matcher_backend: xla
 matcher_device_windows: true
 matcher_prefilter: true
 pallas_single_kernel: "on"

@@ -28,7 +28,6 @@ from tests.test_torch_matcher import _assert_same, _jax, _one_torch_thread, _por
 
 TIER_KEYS = """
 matcher: tpu
-matcher_backend: pallas-interpret
 matcher_device_windows: true
 matcher_prefilter: true
 pallas_single_kernel: "on"
@@ -221,7 +220,9 @@ def test_a_fault_in_the_sketch_or_the_gate_reaches_the_caller(monkeypatch, targe
     # the pipeline is ported: `true` loads (test_torch_config.py); a
     # non-bool value is still refused
     ("pipeline_enabled: 1", "pipeline_enabled"),
-    ("matcher_mesh_devices: 4", "matcher_mesh_devices"),
+    # the mesh is ported: a mesh loads (test_torch_config.py), a bad one
+    # is still refused
+    ("matcher_mesh_devices: 4\nmatcher_mesh_rp: 3", "matcher_mesh_rp"),
     ("matcher_mesh_devices: -1", "matcher_mesh_devices"),
     ("slot_admission_enabled: true\ntraffic_sketch_enabled: false\n"
      "matcher_device_windows: true", "slot_admission_enabled"),
