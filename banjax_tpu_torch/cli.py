@@ -102,19 +102,31 @@ def http_worker_count(configured: int) -> int:
     return configured
 
 
-def build_matcher(config, banner, static_lists, device: DeviceLike = None, health=None):
-    """The Matcher seam flag: `matcher: tpu` selects the device matcher,
-    which the port runs on the card (or on the CPU when `device="cpu"`).
-    The host reference matcher (`matcher: cpu`) stays in the JAX package.
-    `health` (a HealthRegistry) gets the matcher's "matcher" component."""
-    if config.matcher != "tpu":
-        raise ValueError(
-            f"matcher: {config.matcher} is the host reference matcher; the "
-            "port runs matcher: tpu"
-        )
-    from banjax_tpu_torch.matcher.runner import TorchMatcher
+def build_matcher(config, banner, static_lists, regex_states=None, device: DeviceLike = None,
+                  health=None):
+    """The Matcher seam flag: `matcher: cpu` (the schema's default) builds
+    the host matcher (`CpuMatcher`: Python `re` and `regex_states`, no
+    device); `matcher: tpu` the device matcher, which the port runs on the
+    card (or on the CPU when `device="cpu"`) and which steps
+    `regex_states` on the host when `matcher_device_windows` is off.
+    `regex_states` (a RegexRateLimitStates) defaults to a fresh one.
+    `health` (a HealthRegistry) gets the "matcher" component."""
+    from banjax_tpu_torch.decisions.rate_limit import RegexRateLimitStates
 
-    return TorchMatcher(config, banner, static_lists, device=device, health=health)
+    if regex_states is None:
+        regex_states = RegexRateLimitStates()
+    if config.matcher == "tpu":
+        from banjax_tpu_torch.matcher.runner import TorchMatcher
+
+        return TorchMatcher(config, banner, static_lists, regex_states, device=device,
+                            health=health)
+    from banjax_tpu_torch.matcher.cpu_ref import CpuMatcher
+
+    if health is not None:
+        # the host matcher has no device to fail; registered so that
+        # /healthz still lists the component
+        health.register("matcher")
+    return CpuMatcher(config, banner, static_lists, regex_states)
 
 
 def build_decision_chain(config, banner, static_lists, device: DeviceLike = None):
@@ -143,7 +155,8 @@ def build_decision_chain(config, banner, static_lists, device: DeviceLike = None
 
 
 class NoStates:
-    """The window states before the first matcher is built (no line read yet)."""
+    """No window states: a serving worker's, whose /rate_limit_states is
+    proxied to the primary."""
 
     def format_states(self) -> str:
         return ""
@@ -156,15 +169,16 @@ class NoStates:
 
 
 class RegexStatesView:
-    """/rate_limit_states reads the current matcher's device windows."""
+    """/rate_limit_states and the metrics read the current matcher's
+    device windows, or the app's host states when the matcher has none
+    (`matcher: cpu`, host windows, or no matcher built yet)."""
 
     def __init__(self, app: "BanjaxApp"):
         self._app = app
 
     def _target(self):
-        m = self._app._matcher
-        dw = m.device_windows if m is not None else None
-        return dw if dw is not None else NoStates()
+        dw = getattr(self._app._matcher, "device_windows", None)
+        return dw if dw is not None else self._app.regex_states
 
     def format_states(self) -> str:
         return self._target().format_states()
@@ -183,6 +197,7 @@ class BanjaxApp:
                  debug: bool = False, device: DeviceLike = None):
         from banjax_tpu_torch.config_holder import ConfigHolder
         from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
+        from banjax_tpu_torch.decisions.rate_limit import RegexRateLimitStates
         from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
         from banjax_tpu_torch.device import resolve_device
         from banjax_tpu_torch.effectors.banner import Banner
@@ -209,6 +224,9 @@ class BanjaxApp:
         provenance.configure(enabled=config.provenance_enabled,
                              ring_size=config.provenance_ring_size)
         self.static_lists = StaticDecisionLists(config)
+        # the host window states: made once, so they outlive a reload's
+        # matcher rebuild (the JAX app's)
+        self.regex_states = RegexRateLimitStates()
         # multi-process serving: the workers' replicas follow these lists
         # through the supervisor's broadcast
         self._supervisor = None
@@ -497,7 +515,8 @@ class BanjaxApp:
                     old.close()
                     del old
                     gc.collect()
-                self._matcher = build_matcher(cfg, self.banner, self.static_lists, self.device,
+                self._matcher = build_matcher(cfg, self.banner, self.static_lists,
+                                              self.regex_states, self.device,
                                               health=self.health)
                 self._matcher_generation = generation
             return cfg, self._matcher

@@ -119,8 +119,8 @@ class Config:
     # the device mesh (parallel/mesh.py): 0 = single-device; rp 0 = auto
     matcher_mesh_devices: int = 0
     matcher_mesh_rp: int = 0
-    # the port runs only the single-program chunk commit; "off" (the JAX
-    # package's two-program path) is refused by TorchMatcher
+    # the chunk commit: auto/on the single program, off the two programs
+    # (a match program, then the window program at the drain)
     pallas_single_kernel: str = "auto"
     # the host tier and state tiering (the JAX schema's defaults)
     matcher_native_parse: bool = True

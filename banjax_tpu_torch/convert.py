@@ -17,6 +17,9 @@ containers (this module imports nothing of it):
   port's record layout is the JAX package's), and `load_sketch_state`
   the traffic sketch (count-min, HLL, slot -> hash table, host mirror,
   cached pull, candidates, counters).
+* `load_regex_states` puts the contents of a JAX `RegexRateLimitStates`
+  (ip -> rule name -> hits and interval start) into the port's, the host
+  window states that `matcher: cpu` and host windows step.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Iterable, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from banjax_tpu_torch.decisions.rate_limit import NumHitsAndIntervalStart, RegexRateLimitStates
 from banjax_tpu_torch.obs.sketch import TrafficSketch
 
 from banjax_tpu_torch.matcher.prefilter import PrefilterPlan
@@ -212,3 +216,22 @@ def load_sketch_state(sk: TrafficSketch, d: Mapping) -> None:
         sk.refused_rows_folded = int(d["refused_rows_folded"])
         sk.pull_count = int(d["pull_count"])
         sk.pull_bytes_total = int(d["pull_bytes_total"])
+
+
+def load_regex_states(states: RegexRateLimitStates, content: Mapping[str, Mapping]) -> None:
+    """Replace `states`' contents with `content`: ip -> rule name -> the
+    window's (num_hits, interval_start_time_ns), as a pair or as an object
+    with those two attributes (a JAX `NumHitsAndIntervalStart`). Insertion
+    order carries over, so `format_states` lists the IPs and rules as the
+    source does."""
+    def entry(v) -> NumHitsAndIntervalStart:
+        if hasattr(v, "num_hits"):
+            return NumHitsAndIntervalStart(int(v.num_hits), int(v.interval_start_time_ns))
+        hits, start_ns = v
+        return NumHitsAndIntervalStart(int(hits), int(start_ns))
+
+    with states._lock:
+        states._states = {
+            str(ip): {str(rule): entry(v) for rule, v in rules.items()}
+            for ip, rules in content.items()
+        }

@@ -26,7 +26,9 @@
 // (4 per thread), in order:
 // 1. Each thread loads its 4 events' 8 int32 columns with 16-byte loads
 //    and the b / g_valid / pad flags as bytes (the bytes of torch.bool),
-//    all before the prefix sum, so the loads overlap it.
+//    all before the prefix sum, so the loads overlap it. A thread whose
+//    group of 4 is cut by the end of the events loads element by element
+//    and touches nothing past the last event.
 // 2. A block-wide prefix sum of (non-pad, boundary) counts, packed in one
 //    int, gives every event its place in a stable partition: non-pad
 //    events first, in order, then the pads. The thread scatters its
@@ -44,12 +46,13 @@
 // 4. Every pad event computes its outputs in parallel from the carry left
 //    at its previous non-pad position (or the tile's incoming carry).
 // 5. Each thread writes its 4 events' outputs back in event order with
-//    16-byte stores; `exceeded` as one byte each (a torch.bool).
+//    16-byte stores (element by element for a cut group); `exceeded` as
+//    one byte each (a torch.bool).
 // Shared memory: 38 bytes an event, 155,648 for a full tile.
 //
-// -Xptxas -v (sm_90a, CUDA 12.8): 64 registers (the bound of 1,024-thread
-// blocks), 0 bytes of stack and spills, 144 bytes of static shared memory
-// beside the dynamic tile.
+// -Xptxas -v (sm_90a, CUDA 12.8): 58 registers (the bound of 1,024-thread
+// blocks is 64), 0 bytes of stack and spills, 144 bytes of static shared
+// memory beside the dynamic tile.
 
 #include <cuda_runtime.h>
 
@@ -126,8 +129,8 @@ __device__ __forceinline__ int warp_inclusive_sum(int x, int lane) {
   return x;
 }
 
-__device__ __forceinline__ int4 load4(const int32_t* p, int k, int cnt) {
-  if (cnt == kPerThread && (reinterpret_cast<uintptr_t>(p + k) & 15) == 0)
+__device__ __forceinline__ int4 load4(const int32_t* p, int k, int cnt, bool full) {
+  if (full && (reinterpret_cast<uintptr_t>(p + k) & 15) == 0)
     return __ldg(reinterpret_cast<const int4*>(p + k));
   int4 v = make_int4(0, 0, 0, 0);
   if (cnt > 0) v.x = __ldg(p + k);
@@ -137,16 +140,16 @@ __device__ __forceinline__ int4 load4(const int32_t* p, int k, int cnt) {
   return v;
 }
 
-__device__ __forceinline__ uint32_t load4_bytes(const uint8_t* p, int k, int cnt) {
-  if (cnt == kPerThread && (reinterpret_cast<uintptr_t>(p + k) & 3) == 0)
+__device__ __forceinline__ uint32_t load4_bytes(const uint8_t* p, int k, int cnt, bool full) {
+  if (full && (reinterpret_cast<uintptr_t>(p + k) & 3) == 0)
     return __ldg(reinterpret_cast<const uint32_t*>(p + k));
   uint32_t v = 0;
   for (int j = 0; j < cnt; ++j) v |= (uint32_t)__ldg(p + k + j) << (8 * j);
   return v;
 }
 
-__device__ __forceinline__ void store4(int32_t* p, int k, int cnt, int4 v) {
-  if (cnt == kPerThread && (reinterpret_cast<uintptr_t>(p + k) & 15) == 0) {
+__device__ __forceinline__ void store4(int32_t* p, int k, int cnt, bool full, int4 v) {
+  if (full && (reinterpret_cast<uintptr_t>(p + k) & 15) == 0) {
     *reinterpret_cast<int4*>(p + k) = v;
     return;
   }
@@ -156,8 +159,8 @@ __device__ __forceinline__ void store4(int32_t* p, int k, int cnt, int4 v) {
   if (cnt > 3) p[k + 3] = v.w;
 }
 
-__device__ __forceinline__ void store4_bytes(uint8_t* p, int k, int cnt, uint32_t v) {
-  if (cnt == kPerThread && (reinterpret_cast<uintptr_t>(p + k) & 3) == 0) {
+__device__ __forceinline__ void store4_bytes(uint8_t* p, int k, int cnt, bool full, uint32_t v) {
+  if (full && (reinterpret_cast<uintptr_t>(p + k) & 3) == 0) {
     *reinterpret_cast<uint32_t*>(p + k) = v;
     return;
   }
@@ -226,15 +229,23 @@ __global__ void __launch_bounds__(kThreads) window_scan_kernel(Args a) {
     const int n = min(T, a.E - base);
     const int e0 = tid * kPerThread;  // my events: e0 .. e0 + cnt - 1 of the tile
     const int k0 = base + e0;
-    const int cnt = max(0, min(kPerThread, n - e0));
+    // `full` gates the 16-byte loads and stores and is computed on its own:
+    // tested as `cnt == kPerThread` on cnt = max(0, min(kPerThread, rem)),
+    // ptxas (CUDA 12.8, sm_90a) read the predicate of the fused clamp as
+    // that test and took the 16-byte paths for any rem >= 0, which wrote up
+    // to four elements past the last event and, on a second tile,
+    // overwrote the start of the next output row
+    const int rem = n - e0;
+    const bool full = rem >= kPerThread;
+    const int cnt = full ? kPerThread : max(0, rem);
 
     // 1. my events' fields and flags
     int4 v[kCols];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) v[c] = load4(a.in[c], k0, cnt);
-    const uint32_t pw = load4_bytes(a.pad, k0, cnt);
-    const uint32_t bw = load4_bytes(a.b, k0, cnt);
-    const uint32_t vw = load4_bytes(a.gv, k0, cnt);
+    for (int c = 0; c < kCols; ++c) v[c] = load4(a.in[c], k0, cnt, full);
+    const uint32_t pw = load4_bytes(a.pad, k0, cnt, full);
+    const uint32_t bw = load4_bytes(a.b, k0, cnt, full);
+    const uint32_t vw = load4_bytes(a.gv, k0, cnt, full);
 
     // 2. exclusive prefix of (non-pad, non-pad boundary) counts, packed
     int x = 0;
@@ -279,6 +290,9 @@ __global__ void __launch_bounds__(kThreads) window_scan_kernel(Args a) {
     const Carry in = entry;
     const int head = (n_np > 0 && fb[0] == 0) ? 1 : 0;
     const int n_seg = n_b + head;
+    // every thread has read fb[0] (a boundary flag) before the walk of
+    // position 0 overwrites it with that event's exceeded flag
+    __syncthreads();
     for (int s = tid; s < n_seg; s += kThreads) {
       const int q0 = s < head ? 0 : aux[s - head];
       const int q1 = s + 1 < n_seg ? aux[s + 1 - head] : n_np;
@@ -312,14 +326,14 @@ __global__ void __launch_bounds__(kThreads) window_scan_kernel(Args a) {
       if (cnt > 1) w.y = col[src[o] * T + pos[1]];
       if (cnt > 2) w.z = col[src[o] * T + pos[2]];
       if (cnt > 3) w.w = col[src[o] * T + pos[3]];
-      store4(a.out[o], k0, cnt, w);
+      store4(a.out[o], k0, cnt, full, w);
     }
     uint32_t ew = 0;
 #pragma unroll
     for (int j = 0; j < kPerThread; ++j) {
       if (j < cnt) ew |= (uint32_t)fb[pos[j]] << (8 * j);
     }
-    store4_bytes(a.ex, k0, cnt, ew);
+    store4_bytes(a.ex, k0, cnt, full, ew);
     __syncthreads();  // the next tile reuses the shared memory
   }
 }

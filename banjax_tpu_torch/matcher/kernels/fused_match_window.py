@@ -10,8 +10,8 @@ of events in shared memory, partitions the non-pad events to the front,
 walks the segments in parallel from shared memory and hands the open
 segment's carry from tile to tile. The wrapper launches the kernel and
 nothing else: the flags go in as the bytes of torch.bool and `exceeded`
-comes back as a torch.bool. Both the single-program commit and the
-classic `DeviceWindows.apply_bitmap` run it.
+comes back as a torch.bool. The single-program commit, program B of the
+two-program commit and the classic `DeviceWindows.apply_bitmap` run it.
 
 `window_scan_plain` is its plain PyTorch version, with the same
 structure: the pad events never change the carry, so the non-pad events
@@ -23,6 +23,8 @@ non-pad event before it.
 two-stage match, dense caller-order bitmap, live mask, the overflow/chain
 gate and the gated window commit, returning one compact buffer whose
 decode gives the JAX program's flags, pairs, always-rule bits and events.
+`match_head` is the stateless part it shares with the two-program mode's
+program A (`matcher/fused_windows.py`).
 """
 
 from __future__ import annotations
@@ -191,32 +193,23 @@ def scan_selftest(device, E: int = 64) -> None:
             raise RuntimeError(f"window-scan selftest mismatch on {name!r}")
 
 
-def build_single_program(pf, windows, active_table, n_rules: int, Bp: int, *,
-                         f_idx, a_idx, aw, ae):
-    """One chunk's device work: match + dense bitmap + live mask +
-    overflow/chain gate + gated window commit + compact output.
+def match_head(pf, n_rules: int, Bp: int, *, f_idx, a_idx, aw, ae):
+    """The stateless head that both chunk commits share: the two-stage
+    match (kernel A for both stages), the sparse (row, rule) pairs and the
+    dense caller-order bitmap with padding rows zeroed.
 
-    Returns (fn, K, P) where
-      fn(state, chain_ok, combined, n_real, host_idx, slots, ts_s, ts_ns,
-         live) -> (chain_ok_out, buf, bits_dev)
-    mutates `state` in place (every write drops when the gate is shut) and
-    `buf` is the one uint8 buffer to pull:
-
-      flags[4 x i32: ok, n_cand, n_pairs, n_events]
-      ‖ (row, rule) pairs [4P]
-      ‖ always-rule bits [Bp * na8]            (when the plan has any)
-      ‖ ev line/rule/hits/start_s/start_ns [5 x 4E]
-      ‖ ev match_type/exceeded/seen_ip [3 x E]
-    """
+    Returns (fn, K, P) where fn(combined, n_real) -> (c, pairs, n_pairs,
+    bits, ab): `c` the match core's outputs, `bits` the [Bp, n_rules]
+    uint8 bitmap, `ab` the always-rule bits in caller order (None when
+    the plan has none)."""
     _, K = pf.capacities(Bp)
     P = pf.pair_capacity(Bp, K)
     plan = pf.plan
     n_always = plan.n_always
     n_filt = plan.stage2.n_rules
-    max_events = windows.max_events
     dev = pf.device
 
-    def single(state, chain_ok, combined, n_real, host_idx, slots, ts_s, ts_ns, live):
+    def head(combined, n_real):
         c = pf.match_core(combined, K)
         pairs, n_pairs, m2 = pf.pairs_from_core(c, K, P)
         # dense caller-order bitmap; row Bp collects the empty slots
@@ -229,8 +222,50 @@ def build_single_program(pf, windows, active_table, n_rules: int, Bp: int, *,
             ab = c["ab_caller"] | aw[None, :]
             ab = ab | (ae[None, :] * (c["lens"] == 0).to(torch.uint8)[:, None])
             bits[:, a_idx] = ab
+        # padding rows can carry bits (an always-match column is all
+        # ones) and must not reach a window commit: their slot belongs to
+        # a real IP
         real = (torch.arange(Bp, device=dev) < n_real).to(torch.uint8)
-        bits = bits * real[:, None]
+        return c, pairs, n_pairs, bits * real[:, None], ab
+
+    return head, K, P
+
+
+def head_parts(flags, pairs, ab):
+    """flags[4 x i32] ‖ (row, rule) pairs [4P] ‖ always-rule bits
+    [Bp * na8] (when the plan has any), as uint8 pieces."""
+    parts = [flags.view(torch.uint8), pairs.view(torch.uint8)]
+    if ab is not None:
+        parts.append(packbits_rows(ab).reshape(-1))
+    return parts
+
+
+def event_parts(ev):
+    """ev line/rule/hits/start_s/start_ns [5 x 4E] ‖ match_type/exceeded/
+    seen_ip [3 x E], as uint8 pieces."""
+    parts = [ev[key].to(torch.int32).view(torch.uint8)
+             for key in ("line", "rule", "hits", "start_s", "start_ns")]
+    parts += [ev[key].to(torch.uint8) for key in ("match_type", "exceeded", "seen_ip")]
+    return parts
+
+
+def build_single_program(pf, windows, active_table, n_rules: int, Bp: int, *,
+                         f_idx, a_idx, aw, ae):
+    """One chunk's device work: match + dense bitmap + live mask +
+    overflow/chain gate + gated window commit + compact output.
+
+    Returns (fn, K, P) where
+      fn(state, chain_ok, combined, n_real, host_idx, slots, ts_s, ts_ns,
+         live) -> (chain_ok_out, buf, bits_dev)
+    mutates `state` in place (every write drops when the gate is shut) and
+    `buf` is the one uint8 buffer to pull: `head_parts` then
+    `event_parts`.
+    """
+    head, K, P = match_head(pf, n_rules, Bp, f_idx=f_idx, a_idx=a_idx, aw=aw, ae=ae)
+    max_events = windows.max_events
+
+    def single(state, chain_ok, combined, n_real, host_idx, slots, ts_s, ts_ns, live):
+        c, pairs, n_pairs, bits, ab = head(combined, n_real)
         # the live mask drops stale/abandoned rows from the commit; the
         # returned dense bitmap stays unmasked for the classic fallback
         bits_live = bits * live[:, None]
@@ -243,13 +278,7 @@ def build_single_program(pf, windows, active_table, n_rules: int, Bp: int, *,
             n_rules=n_rules, max_events=max_events, gate=ok,
         )
         flags = torch.stack([ok.to(torch.int32), c["n_cand"], n_pairs, n_events])
-        parts = [flags.view(torch.uint8), pairs.view(torch.uint8)]
-        if n_always:
-            parts.append(packbits_rows(ab).reshape(-1))
-        for key in ("line", "rule", "hits", "start_s", "start_ns"):
-            parts.append(ev[key].to(torch.int32).view(torch.uint8))
-        for key in ("match_type", "exceeded", "seen_ip"):
-            parts.append(ev[key].to(torch.uint8))
+        parts = head_parts(flags, pairs, ab) + event_parts(ev)
         return ok.to(torch.int32), torch.cat(parts), bits
 
     return single, K, P

@@ -1,7 +1,7 @@
 """TorchMatcher: the regex rate-limit log path on the card (port of
 `banjax_tpu/matcher/runner.py` TpuMatcher, deploy configuration).
 
-Per batch of log lines:
+Per batch of log lines (with matcher_device_windows on):
 
   host gate: the native batch parse + byte-class encode (`native/
     fastparse.c`, columnar work set, allowlist per distinct (host, ip)),
@@ -25,6 +25,18 @@ commits nothing and replays through the classic path: single-stage match
 apply_bitmap` (kernel B). Batches with lines the device cannot decide
 (non-ASCII or over-long) or rules the compiler cannot lower take the
 classic path with host `re` for those lines or rules.
+
+`pallas_single_kernel: off` selects the two-program commit instead
+(`fused_windows.py`): program A (the stateless match and every overflow
+flag, kernel A) runs per chunk at submit, program B (the window commit,
+kernel B) at resolve, in chunk order. "auto" and "on" select the single
+program; nothing downgrades from one to the other on a fault.
+
+Host windows (matcher_device_windows: false): the match stays on the card
+(kernel A, through the prefilter or the mesh), and the window states are
+the host's `RegexRateLimitStates`, stepped per matched line in the
+reference order (`_apply_host_windows`), with no slots, no sketch and no
+kernel B.
 
 Each committed chunk also folds into the traffic sketch (`obs/sketch.py`)
 on the card. Unlike the JAX runner, nothing here swallows an error of
@@ -52,10 +64,15 @@ replays everything in admission order on the drain thread. A batch that
 cannot commit at submit (slot refusal, host-eval rows, `pipeline_fused:
 false`, or an earlier batch that still owes a drain-time window apply)
 takes the classic pend: its match at submit, its windows at its drain.
-The JAX runner's two-program fused mode (program A at submit, program B
-at drain) is not ported. Where the JAX runner replays a batch's refused
-rows at submit, the port replays them at the batch's drain, so ban-log
-order stays the synchronous path's.
+In two-program mode submit dispatches program A for every chunk of the
+batch (or, when a slot allocation refuses, abandons them and takes the
+classic pend), and the drain re-cuts staleness at its own clock and
+dispatches program B chunk by chunk in admission order, keeping up to
+drain_resolve_depth - 1 resolved chunks' replays pending so that one
+chunk's event pull and replay overlap the next chunk's program B. Host
+windows apply at the drain too. Where the JAX runner replays a batch's
+refused rows at submit, the port replays them at the batch's drain, so
+ban-log order stays the synchronous path's.
 
 Mesh mode (`matcher_mesh_devices` > 0, `parallel/mesh.py`): the rules
 compile into rp * k shards (k the least that fits kernel A's words a
@@ -69,9 +86,10 @@ a CUDA matcher asking for more members than cards runs single-device,
 with a warning, as JAX does.
 
 Observability (`obs/`): each committed chunk's program runs inside a
-`program-ab-fused` span (a child of the scheduler's `submit`), its drain
-pull and replay inside `effector-replay` (a child of `drain`), a gated
-chunk's fallback marks a `fused-overflow-fallback` instant; a breaker trip
+`program-ab-fused` span (a child of the scheduler's `submit`; in
+two-program mode `program-a` there and `program-b` under `drain`), its
+drain pull and replay inside `effector-replay` (a child of `drain`), a
+gated chunk's fallback marks a `fused-overflow-fallback` instant; a breaker trip
 records a `breaker-trip` instant and notifies the flight recorder; every
 rate-limit ban is recorded in the provenance ledger with its rule, rule
 index and the threshold's hit, under the drain's trace id.
@@ -88,11 +106,12 @@ import numpy as np
 import torch
 
 from banjax_tpu_torch.config import Config, RegexWithRate
-from banjax_tpu_torch.decisions.rate_limit import RateLimitResult
+from banjax_tpu_torch.decisions.rate_limit import RateLimitResult, RegexRateLimitStates
 from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
 from banjax_tpu_torch.device import DeviceLike, resolve_device
 from banjax_tpu_torch.effectors.banner import BannerInterface
 from banjax_tpu_torch.matcher.api import ConsumeLineResult, Matcher, RuleResult
+from banjax_tpu_torch.matcher.cpu_ref import apply_matched_rule
 from banjax_tpu_torch.matcher.encode import ParsedLine, encode_for_match, parse_line
 from banjax_tpu_torch.matcher.fused_windows import FusedWindowsPipeline, PipelineOverflow
 from banjax_tpu_torch.matcher.kernels import fused_match_window, nfa_match
@@ -120,6 +139,10 @@ log = logging.getLogger(__name__)
 OLD_LINE_CUTOFF_SECONDS = 10
 _MIN_BUCKET = 64
 
+# process-wide warn-once for drain_resolve_depth on the single program
+# (tests build many matchers; one log line is the signal)
+_DEPTH_IGNORED_WARNED = False
+
 
 class BreakerOpen(RuntimeError):
     """The matcher's breaker is open: the batch was refused before it
@@ -127,29 +150,28 @@ class BreakerOpen(RuntimeError):
 
 
 class TorchMatcher(Matcher):
+    # True when drain_resolve_depth > 1 is configured but the single
+    # program leaves nothing to overlap (SingleKernelDepthIgnored)
+    single_kernel_depth_ignored = False
+
     def __init__(
         self,
         config: Config,
         banner: BannerInterface,
         decision_lists: StaticDecisionLists,
+        rate_limit_states: Optional[RegexRateLimitStates] = None,
         device: DeviceLike = None,
         health=None,
         mesh_devices: Optional[Sequence[DeviceLike]] = None,
     ):
+        """`rate_limit_states`: the host window states that host windows
+        (matcher_device_windows: false) step; a fresh one when None."""
         self.device = resolve_device(device)
-        if not config.matcher_device_windows:
-            raise ValueError(
-                "TorchMatcher keeps the window counters on the device: set "
-                "matcher_device_windows: true (host windows are not ported)"
-            )
-        if config.pallas_single_kernel == "off":
-            raise ValueError(
-                "pallas_single_kernel: off selects the two-program fused "
-                "path, which is not ported; use auto or on"
-            )
         self.config = config
         self.banner = banner
         self.decision_lists = decision_lists
+        self.rate_limit_states = (rate_limit_states if rate_limit_states is not None
+                                  else RegexRateLimitStates())
         dev = self.device
 
         # the circuit breaker around the device batch path, and the
@@ -166,11 +188,16 @@ class TorchMatcher(Matcher):
         self.refused_batches = 0   # batches the open breaker refused
         self.refused_lines = 0
         self.stats = MatcherStats()
+        self._health_registry = health
         self._health = health.register("matcher") if health is not None else None
         # the split protocol: pipeline_fused false sends every batch down
-        # the classic pend (the config's drain_resolve_depth has nothing
-        # to overlap on the single-program commit, as the JAX runner warns)
+        # the classic pend
         self._pipeline_fused = config.pipeline_fused
+        # the two-program drain's resolve-ahead: up to depth - 1 resolved
+        # chunks wait for their replay while the next chunk's program B
+        # runs (1: the serial drain); the EWMA of the overlapped replays
+        self._drain_resolve_depth = config.drain_resolve_depth
+        self.drain_resolve_overlap_ms_ewma: Optional[float] = None
         self.pipelined_fused_chunks = 0
         self.pipelined_fused_fallbacks = 0
         # batches whose window apply waits for their drain (classic pend):
@@ -234,47 +261,20 @@ class TorchMatcher(Matcher):
             self._parse_scratch = native.ParseScratch()
             self._dedup_scratch = native.DedupScratch()
 
-        self.device_windows = DeviceWindows(
-            [r for _, r in self._entries],
-            capacity=config.matcher_window_capacity, device=dev,
-            native_slotmgr=config.slotmgr_native,
-            warm_tier_enabled=config.warm_tier_enabled,
-            warm_tier_capacity=config.warm_tier_capacity,
-        )
-        # the traffic sketch on this matcher's device, and the slot-
-        # admission gate on its estimates. min_estimate <= 0 derives the
-        # cheapest threshold: min(hits_per_interval) + 1 is the earliest
-        # row count at which any rule can fire
+        # the window counters on the device, or (None) the host states;
+        # the sketch, the admission gate and the active table exist only
+        # beside device windows, as in JAX
+        self.device_windows: Optional[DeviceWindows] = None
         self.traffic_sketch: Optional[TrafficSketch] = None
-        if config.traffic_sketch_enabled:
-            self.traffic_sketch = TrafficSketch(
-                [r.rule for _, r in self._entries], dev,
-                depth=config.traffic_sketch_depth, width=config.traffic_sketch_width,
-                hll_p=config.traffic_sketch_hll_p,
-                pull_seconds=config.traffic_sketch_pull_seconds,
-                topk=config.traffic_sketch_topk,
-                max_candidates=config.traffic_sketch_candidates,
-            )
+        self._active_table = None
+        self._host_row: Dict[str, int] = {}
+        if config.matcher_device_windows:
+            self._build_device_windows(config, dev)
         self._slot_admission = config.slot_admission_enabled and self.traffic_sketch is not None
         me = config.slot_admission_min_estimate
         if me <= 0:
             me = max(1, min((r.hits_per_interval for _, r in self._entries), default=0) + 1)
         self.admission_min_estimate = me
-        # active_table[h, rid]: rule rid applies to lines of host row h
-        # (that host's per-site rules + the global rules) minus hosts_to_skip
-        hosts = sorted(
-            set(self._per_site_idx)
-            | {h for _, r in self._entries for h in r.hosts_to_skip}
-        )
-        self._host_row = {h: i + 1 for i, h in enumerate(hosts)}
-        table = np.zeros((len(hosts) + 1, max(1, len(self._entries))), dtype=bool)
-        for row_host, row in [(None, 0)] + list(self._host_row.items()):
-            ids = (self._per_site_idx.get(row_host, []) if row_host else []) + self._global_idx
-            for idx in ids:
-                if row_host and self._entries[idx][1].hosts_to_skip.get(row_host):
-                    continue
-                table[row, idx] = True
-        self._active_table = torch.from_numpy(table).to(dev)
 
         # two-stage prefilter, sharing this matcher's byte classes so one
         # encode feeds both stages and the single-stage fallback; None when
@@ -296,17 +296,87 @@ class TorchMatcher(Matcher):
         self._rule_pos_cache: Dict[str, Dict[int, int]] = {}
         self._global_pos = {int(x): k for k, x in enumerate(self._global_idx)}
 
-        # one device program per chunk when the prefilter is on and every
-        # rule is device-decidable (host-fallback rules need the classic
-        # bitmap path)
+        # the chunk commit when device windows and the prefilter are on
+        # and every rule is device-decidable (host-fallback rules need the
+        # classic bitmap path): one program a chunk, or the two programs
         self._fw_pipeline = None
-        if self._prefilter is not None and not self._host_rule_idx:
-            fused_match_window.scan_selftest(dev)
+        if (self.device_windows is not None and self._prefilter is not None
+                and not self._host_rule_idx):
+            single = self._resolve_single_kernel(config)
             self._fw_pipeline = FusedWindowsPipeline(
                 self._prefilter, self.device_windows, self._active_table,
-                self.compiled.n_rules, traffic_sketch=self.traffic_sketch,
-                clock=self.clock,
+                self.compiled.n_rules, single_kernel=single,
+                traffic_sketch=self.traffic_sketch, clock=self.clock,
             )
+
+    def _build_device_windows(self, config: Config, dev: torch.device) -> None:
+        self.device_windows = DeviceWindows(
+            [r for _, r in self._entries],
+            capacity=config.matcher_window_capacity, device=dev,
+            native_slotmgr=config.slotmgr_native,
+            warm_tier_enabled=config.warm_tier_enabled,
+            warm_tier_capacity=config.warm_tier_capacity,
+        )
+        # the traffic sketch on this matcher's device, for the slot-
+        # admission gate's estimates
+        if config.traffic_sketch_enabled:
+            self.traffic_sketch = TrafficSketch(
+                [r.rule for _, r in self._entries], dev,
+                depth=config.traffic_sketch_depth, width=config.traffic_sketch_width,
+                hll_p=config.traffic_sketch_hll_p,
+                pull_seconds=config.traffic_sketch_pull_seconds,
+                topk=config.traffic_sketch_topk,
+                max_candidates=config.traffic_sketch_candidates,
+            )
+        # active_table[h, rid]: rule rid applies to lines of host row h
+        # (that host's per-site rules + the global rules) minus hosts_to_skip
+        hosts = sorted(
+            set(self._per_site_idx)
+            | {h for _, r in self._entries for h in r.hosts_to_skip}
+        )
+        self._host_row = {h: i + 1 for i, h in enumerate(hosts)}
+        table = np.zeros((len(hosts) + 1, max(1, len(self._entries))), dtype=bool)
+        for row_host, row in [(None, 0)] + list(self._host_row.items()):
+            ids = (self._per_site_idx.get(row_host, []) if row_host else []) + self._global_idx
+            for idx in ids:
+                if row_host and self._entries[idx][1].hosts_to_skip.get(row_host):
+                    continue
+                table[row, idx] = True
+        self._active_table = torch.from_numpy(table).to(dev)
+
+    def _resolve_single_kernel(self, config: Config) -> bool:
+        """`pallas_single_kernel`: "off" selects the two-program commit,
+        "auto" and "on" the single program. Either way kernel B is built
+        and held against its plain version first; a failure raises (the
+        JAX runner's selftest downgrade to two programs is not ported).
+        The "matcher-single-kernel" health component carries JAX's texts;
+        on the CPU the scan is the plain version, JAX's interpret-mode
+        counterpart."""
+        comp = (self._health_registry.register("matcher-single-kernel")
+                if self._health_registry is not None else None)
+        fused_match_window.scan_selftest(self.device)
+        if config.pallas_single_kernel == "off":
+            if comp is not None:
+                comp.ok("pallas_single_kernel: off (two-program path)")
+            return False
+        depth_note = ""
+        if self._drain_resolve_depth > 1:
+            self.single_kernel_depth_ignored = True
+            depth_note = (f"; drain_resolve_depth={self._drain_resolve_depth} is a "
+                          "no-op here (no program-B dispatch to overlap)")
+            global _DEPTH_IGNORED_WARNED
+            if not _DEPTH_IGNORED_WARNED:
+                _DEPTH_IGNORED_WARNED = True
+                log.warning(
+                    "drain_resolve_depth=%d is configured but the single-kernel fused "
+                    "path commits at submit — the resolve-ahead depth is a no-op (set "
+                    "pallas_single_kernel: off to use it, or drop the key)",
+                    self._drain_resolve_depth,
+                )
+        if comp is not None:
+            scan = "(interpret scan)" if self.device.type == "cpu" else "(compiled scan)"
+            comp.ok("single-kernel fused path active " + scan + depth_note)
+        return True
 
     def _build_mesh(self, config, patterns, members, rp, health) -> mesh.ShardedMatchBackend:
         """The sharded match backend (JAX `runner.py:321-377`): stage 2 of
@@ -416,7 +486,7 @@ class TorchMatcher(Matcher):
             return results
         with self.clock("chunk"):
             bits = self._match_bits(work, encoded)
-        self._apply_device_windows(work, bits, results)
+        self._apply_windows(work, bits, results)
         return results
 
     # ---- the breaker, the latency budget, health ----
@@ -825,10 +895,12 @@ class TorchMatcher(Matcher):
             self._drain_window_batches += 1
         state["window_at_drain"] = True
 
-    @staticmethod
-    def _committed(state: dict) -> bool:
+    def _committed(self, state: dict) -> bool:
+        """Whether the batch's submit changed window state: the refused
+        rows' fold and host steps, or a single-program chunk. Program A
+        changes none."""
         return bool(state["refused_rows"] is not None or state["refused"] is not None
-                    or state["fused"])
+                    or (state["fused"] and self._fw_pipeline.single_kernel))
 
     def pipeline_recover(self, state: dict) -> bool:
         """After a failed device stage (submit or collect): True when the
@@ -843,48 +915,77 @@ class TorchMatcher(Matcher):
     def _single_kernel_ordered(self) -> bool:
         """Committing at submit is order-safe only while no earlier batch
         still owes a drain-time window apply; otherwise this batch takes
-        the classic pend too, and the drain thread applies in order."""
+        the classic pend too, and the drain thread applies in order. The
+        two-program mode commits at drain anyway, so it never gates."""
+        if not self._fw_pipeline.single_kernel:
+            return True
         with self._drain_window_lock:
             return self._drain_window_batches == 0
 
     def _submit_fused_pipeline(self, state: dict, now: Optional[float] = None) -> int:
-        """Run the fused program for each chunk of the batch; returns the
-        rows committed: all of them, or the chunks before the first whose
-        slot allocation refused (in-flight batches hold pins until their
-        drains). Unlike the JAX runner, which abandons every chunk of such
-        a batch, committed chunks stay: a commit on the card cannot be
-        taken back. A failure leaves the chunks committed so far in
-        `state["fused"]` for the drain to replay, and re-raises."""
+        """Run each chunk's program; returns the rows submitted.
+
+        Single program: the rows committed, all of them or the chunks
+        before the first whose slot allocation refused (in-flight batches
+        hold pins until their drains). Unlike the JAX runner, which
+        abandons every chunk of such a batch, committed chunks stay: a
+        commit on the card cannot be taken back. A failure leaves the
+        chunks committed so far in `state["fused"]` for the drain to
+        replay, and re-raises.
+
+        Two programs: program A (stateless) for every chunk, else none —
+        a slot refusal or a failure abandons the chunks submitted so far
+        (their turns and pins), as the JAX runner does; the batch then
+        takes the classic pend, or the failure re-raises."""
         failpoints.check("matcher.device")
         work = state["work"]
         cls_ids, lens, _ = state["pre"]
-        if now is None:
+        sk = self._fw_pipeline.single_kernel
+        if sk and now is None:
             now = time.time()
+        # the JAX span names: match and window commit are one program
+        # (kernel A, then kernel B), or program A here and B at the drain
+        span_name = "program-ab-fused" if sk else "program-a"
         mb = self._max_batch
         entries: List[dict] = []
-        for s in range(0, len(work), mb):
-            wc = work[s : s + mb]
-            st = (now - wc.ts_array() / 1e9) > OLD_LINE_CUTOFF_SECONDS
-            stale = live = None
-            if st.any():
-                stale, live = st, ~st
-            # the JAX single-program path's span name: match and window
-            # commit are one program (kernel A, then kernel B)
-            with trace.span("program-ab-fused", args={"row0": s}):
-                e = self._submit_pipeline_chunk(wc, cls_ids[s : s + mb], lens[s : s + mb],
-                                                live=live)
-            if e is None:
-                break
-            e.update(row0=s, live=live, stale=stale)
-            entries.append(e)
-            state["fused"] = entries
+        try:
+            for s in range(0, len(work), mb):
+                wc = work[s : s + mb]
+                stale = live = None
+                if sk:
+                    st = (now - wc.ts_array() / 1e9) > OLD_LINE_CUTOFF_SECONDS
+                    if st.any():
+                        stale, live = st, ~st
+                with trace.span(span_name, args={"row0": s}):
+                    e = self._submit_pipeline_chunk(wc, cls_ids[s : s + mb], lens[s : s + mb],
+                                                    live=live)
+                if e is None:
+                    if not sk:
+                        self._abandon_entries(entries)
+                        entries = []
+                    break
+                e.update(row0=s, live=live, stale=stale)
+                entries.append(e)
+                if sk:
+                    state["fused"] = entries
+        except BaseException:
+            if not sk:
+                self._abandon_entries(entries)
+            raise
+        state["fused"] = entries or None
         return sum(len(e["work"]) for e in entries)
 
+    def _abandon_entries(self, entries: List[dict]) -> None:
+        for e in entries:
+            self._fw_pipeline.abandon(e["pend"])
+
     def pipeline_collect(self, state: dict) -> None:
-        """Device stage, later: wait for the committed chunks' result
-        copies, and pull the classic pend's match bits. If it raises, the
-        chunks stay for the drain (whose resolve waits for them itself)
-        and the classic rows are matched again there."""
+        """Device stage, later: wait for the chunks' buffer copies
+        (program A's in two-program mode), and pull the classic pend's
+        match bits. If it raises, single-program chunks stay for the drain
+        (whose resolve waits for them itself) and the classic rows are
+        matched again there; program-A chunks committed nothing, and the
+        scheduler aborts them and reruns the batch."""
         entries = state["fused"]
         if entries:
             with self.clock("chunk"):
@@ -916,8 +1017,11 @@ class TorchMatcher(Matcher):
         taken at submit), then the classic pend's rows, re-checked for
         staleness at `now` (a line that aged out in the pipeline is marked
         old_line and counted) before their windows apply. Returns
-        (results, lines dropped as stale). A chunk that fails raises: the
-        scheduler counts the batch as failed and aborts what is left.
+        (results, lines dropped as stale). A single-program chunk that
+        fails raises: the scheduler counts the batch as failed and aborts
+        what is left. Two-program chunks are re-cut for staleness at `now`
+        and committed here (`_finish_two_program`); one that fails loses
+        its own lines (marked error) and counts a breaker failure.
 
         After a failed device stage (`pipeline_recover`) the same steps
         finish the batch: the refused rows' host steps if submit did not
@@ -933,7 +1037,10 @@ class TorchMatcher(Matcher):
             refused, state["refused"] = state["refused"], None
             self._replay_refused(refused, results)
             if state["fused"]:
-                n_stale += self._finish_single_kernel(state, results)
+                if self._fw_pipeline.single_kernel:
+                    n_stale += self._finish_single_kernel(state, results)
+                else:
+                    n_stale += self._finish_two_program(state, now, results)
             work = state["classic"]
             if work is not None and len(work):
                 bits = state["bits"]
@@ -952,7 +1059,7 @@ class TorchMatcher(Matcher):
                     keep = np.flatnonzero(~stale)
                     work, bits = work.take(keep), bits[keep]
                 if len(work):
-                    self._apply_device_windows(work, bits, results)
+                    self._apply_windows(work, bits, results)
             self._note_health()
             return results, n_stale
         except Exception:
@@ -996,6 +1103,111 @@ class TorchMatcher(Matcher):
             self.pipelined_fused_chunks += 1
         state["fused"] = None
         return n_stale
+
+    def _finish_two_program(self, state: dict, now: float, results) -> int:
+        """The two-program chunks' drain (JAX `_finish_fused_pipeline`):
+        each chunk's rows are re-cut for staleness at `now`, then program B
+        commits the live rows, chunk by chunk in admission order, with
+        up to drain_resolve_depth - 1 resolved chunks' event pulls and
+        replays pending, so that each overlaps the next chunk's program B.
+        Resolve order is B dispatch order is device apply order, and
+        replays run chunk-ascending (pending replays drain before an
+        overflowing chunk's classic replay), so ban-log order stays the
+        synchronous path's. A fully stale chunk is abandoned without a
+        program B. Returns the lines dropped as stale."""
+        entries, state["fused"] = state["fused"], None
+        fw = self._fw_pipeline
+        depth = self._drain_resolve_depth
+        pending: List[dict] = []  # resolved, replay deferred (<= depth - 1)
+        n_stale = 0
+
+        def collect_replay(e, overlapped: bool) -> None:
+            t0 = time.perf_counter()
+            # a child of the scheduler's ambient drain span: the event
+            # pull and replay that the resolve-ahead hides behind the next
+            # chunk's program B
+            with trace.span("effector-replay",
+                            args={"row0": e["row0"], "overlapped": overlapped}):
+                try:
+                    with self.clock("chunk"):
+                        res = fw.collect(e["pend"])
+                    self._replay_window_events(
+                        e["work"], None, (res.matched_pairs, res.always_bits), res.events,
+                        results, live_rows=e["live"],
+                    )
+                    self.pipelined_fused_chunks += 1
+                except Exception:  # noqa: BLE001 — collect settled its pins and turns
+                    log.exception("two-program event collect failed; chunk lines marked error")
+                    self._mark_chunk_error(e, e["chunk_stale"], results)
+                    self.note_device_outcome(0.0, ok=False)
+            if overlapped:
+                ms = (time.perf_counter() - t0) * 1e3
+                prev = self.drain_resolve_overlap_ms_ewma
+                self.drain_resolve_overlap_ms_ewma = ms if prev is None else prev + 0.3 * (ms - prev)
+
+        def drain_pending() -> None:
+            while pending:
+                collect_replay(pending.pop(0), overlapped=False)
+
+        for e in entries:
+            pend = e["pend"]
+            work = e["work"]
+            stale = (now - work.ts_array() / 1e9) > OLD_LINE_CUTOFF_SECONDS
+            e["chunk_stale"] = stale
+            live = None
+            if stale.any():
+                n_stale += int(stale.sum())
+                for k in np.flatnonzero(stale).tolist():
+                    r = results[work[k][0]]
+                    r.old_line = True
+                    r.rule_results = []
+                if stale.all():
+                    # nothing to commit: settle the chunk without program B
+                    fw.abandon(pend)
+                    continue
+                live = ~stale
+            e["live"] = live
+            try:
+                failpoints.check("matcher.resolve")
+                with trace.span("program-b", args={"row0": e["row0"],
+                                                   "masked": live is not None}):
+                    with self.clock("chunk"):
+                        fw.resolve(pend, live=live)
+            except PipelineOverflow as ov:
+                # earlier chunks' effects fire before this chunk's replay
+                drain_pending()
+                trace.instant("fused-overflow-fallback", {"row0": e["row0"]})
+                self.pipelined_fused_fallbacks += 1
+                try:
+                    self._pipeline_fallback_entry(e, ov, results, live=live)
+                except Exception:  # noqa: BLE001 — one chunk's loss, not the stream's
+                    log.exception("two-program overflow fallback failed; chunk lines "
+                                  "marked error")
+                    self._mark_chunk_error(e, stale, results)
+                    self.note_device_outcome(0.0, ok=False)
+                continue
+            except Exception:  # noqa: BLE001 — resolve settles its own failures
+                # a fault before resolve (the matcher.resolve failpoint)
+                # leaves the chunk submitted: settle its turns and pins
+                if pend.state == "submitted":
+                    fw.abandon(pend)
+                drain_pending()
+                log.exception("two-program window commit failed; chunk lines marked error")
+                self._mark_chunk_error(e, stale, results)
+                self.note_device_outcome(0.0, ok=False)
+                continue
+            pending.append(e)
+            while len(pending) > depth - 1:
+                head = pending.pop(0)
+                collect_replay(head, overlapped=bool(pending))
+        drain_pending()
+        return n_stale
+
+    @staticmethod
+    def _mark_chunk_error(e: dict, chunk_stale: np.ndarray, results) -> None:
+        """A chunk whose commit failed loses its live lines (marked error)."""
+        for k in np.flatnonzero(~chunk_stale).tolist():
+            results[e["work"][k][0]].error = True
 
     # ---- the fused path ----
 
@@ -1296,6 +1508,33 @@ class TorchMatcher(Matcher):
             if not handed_off:
                 dw.release_pins(slots)
             raise
+
+    def _apply_windows(self, work, bits, results) -> None:
+        """The classic path's window step: on the device, or the host
+        states' when device windows are off."""
+        if self.device_windows is not None:
+            self._apply_device_windows(work, bits, results)
+        else:
+            self._apply_host_windows(work, bits, results)
+
+    def _apply_host_windows(self, work, bits, results) -> None:
+        """The host window pass in line order (JAX `_apply_host_windows`):
+        the host's per-site rules first, then the global rules
+        (regex_rate_limiter.go:175-211). Only matched lines are visited,
+        and in them only their matched rule ids."""
+        with self.clock("host-windows"):
+            for row in np.flatnonzero(bits.any(axis=1)).tolist():
+                i, p = work[row]
+                pos = self._rule_pos(p.host)
+                ids = np.nonzero(bits[row])[0].tolist()
+                try:
+                    for idx in sorted((x for x in ids if x in pos), key=pos.__getitem__):
+                        results[i].rule_results.append(apply_matched_rule(
+                            self.config, self.banner, self.rate_limit_states,
+                            self._entries[idx][1], p.ip, p.host, p.rest, p.timestamp_ns))
+                except Exception:  # noqa: BLE001 — a failing effector loses one line, not the batch
+                    log.exception("error applying rules to log line")
+                    results[i].error = True
 
     def _apply_device_windows(self, work, bits, results) -> None:
         def make(bits_c):

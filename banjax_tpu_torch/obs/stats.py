@@ -113,20 +113,21 @@ class MatcherStats:
                 out["PrefilterActive"] = True
             fw = getattr(matcher, "_fw_pipeline", None)
             if fw is not None:
-                # the port commits on the single-program path only, where
-                # the JAX pipeline's fused and fallback batches are its
-                # single-kernel chunks and fallbacks
-                out["PipelineFusedBatches"] = fw.sk_chunks
-                out["PipelineFallbackBatches"] = fw.sk_fallbacks
+                out["PipelineFusedBatches"] = fw.fused_batches
+                out["PipelineFallbackBatches"] = fw.fallback_batches
                 out["PipelinedFusedChunks"] = matcher.pipelined_fused_chunks
                 out["PipelinedFusedFallbacks"] = matcher.pipelined_fused_fallbacks
-                depth = matcher.config.drain_resolve_depth
-                out["DrainResolveAheadDepth"] = depth
-                # nothing is left to overlap on the single program
-                out["DrainResolveOverlapMs"] = None
-                out["SingleKernelChunks"] = fw.sk_chunks
-                out["SingleKernelFallbacks"] = fw.sk_fallbacks
-                out["SingleKernelDepthIgnored"] = depth > 1
+                out["DrainResolveAheadDepth"] = matcher.config.drain_resolve_depth
+                # the wall time of the drain's event pulls and replays that
+                # ran while the next chunk's program B was on the card: set
+                # in two-program mode only (the single program leaves
+                # nothing to overlap)
+                out["DrainResolveOverlapMs"] = _r3(matcher.drain_resolve_overlap_ms_ewma)
+                if fw.single_kernel:
+                    out["SingleKernelChunks"] = fw.sk_chunks
+                    out["SingleKernelFallbacks"] = fw.sk_fallbacks
+                    # drain_resolve_depth configured but a no-op here
+                    out["SingleKernelDepthIgnored"] = matcher.single_kernel_depth_ignored
             ts = getattr(matcher, "traffic_sketch", None)
             if ts is not None:
                 try:

@@ -12,9 +12,10 @@ commands produced into a broker and drained by a real KafkaReader
 (`kafka_broker=`, e.g. `ingest/broker_standin.KafkaBrokerStandIn`).
 
 The engine runs on the card unless `device` says otherwise ("cpu" runs
-the kernels' plain versions). `single_kernel` takes "auto" or "on": the
-port runs only the single-program chunk commit, and "off" (the JAX
-two-program mode) raises when the matcher is built.
+the kernels' plain versions). `single_kernel` is the matcher's
+`pallas_single_kernel`: "auto" and "on" run the single-program chunk
+commit, "off" the two-program mode (program A at submit, program B at
+the drain).
 
 What a run produces (ScenarioReport):
 

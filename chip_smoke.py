@@ -135,8 +135,20 @@ to its plain version at the members' shapes; a 2 x 2 mesh-mode
 TorchMatcher over 16 chunks and the attack chunk, synchronous and through
 `PipelineScheduler`, with the single-device matcher's ban log and result
 keys and nothing shed; and the deploy file with `matcher_mesh_devices: 1`
-as a 1 x 1 mesh. Each prints its seconds and adds its launches of A, B
-and C to `launches_by_path`.
+as a 1 x 1 mesh. Then `matcher_modes`, on `mesh`'s traffic, each mode
+on a fresh matcher in turns: the single program (the base); the two
+programs (`pallas_single_kernel: off`: program A, kernel A, at submit;
+program B, kernel B, at resolve), synchronous and through
+`PipelineScheduler` at drain_resolve_depth 1 and 2; host windows
+(`matcher_device_windows: false`), synchronous and pipelined; and
+`matcher: cpu` (`CpuMatcher`) on the first 4,096 lines against the
+single program and host windows on that prefix. Ban logs and result
+keys must equal the single program's, window states too where they are
+on the card, nothing may be shed, programs A's and B's buffers on a
+traffic chunk and the attack chunk must equal the CPU's byte for byte,
+and each call's launches of A and B must be the predicted ones. Each
+prints its seconds and adds its launches of A, B and C to
+`launches_by_path`.
 
 The kernel phases time each shape three ways: `ms` (CUDA events around
 20 back-to-back wrapper calls; the host's enqueue bounds it when slower
@@ -369,6 +381,22 @@ MESH = dict(
     chunks_per_call=4,
     grids=((2, 2), (2, 4)),
     matcher_grid=(2, 2),
+)
+# the matcher modes beside the single program (two programs, host
+# windows, matcher: cpu) on the mesh phase's traffic
+MATCHER_MODES = dict(
+    n_rules=1000,
+    batch_lines=4096,
+    max_line_len=256,
+    capacity=65536,
+    chunks=16,             # traffic chunks, plus one all-attack chunk
+    n_ips=50_000,
+    n_offenders=40,
+    offender_hits=40,
+    chunks_per_call=4,
+    depths=(1, 2),         # drain_resolve_depth of the pipelined two-program runs
+    prefix_lines=4096,     # what CpuMatcher (Python re) takes within the phase
+    cross_check_capacity=8192,  # window slots of the CPU matcher for the buffers
 )
 
 SHA_HOST = "sha.example"   # the one host in sitewide_sha_inv_list (block)
@@ -4682,7 +4710,7 @@ def run_mesh(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips, n
     from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
     from banjax_tpu_torch.effectors.banner import Banner
     from banjax_tpu_torch.matcher import encode
-    from banjax_tpu_torch.matcher.kernels import nfa_match
+    from banjax_tpu_torch.matcher.kernels import nfa_match, sass_alu
     from banjax_tpu_torch.matcher.prefilter import build_plan
     from banjax_tpu_torch.matcher.runner import OLD_LINE_CUTOFF_SECONDS, TorchMatcher
     from banjax_tpu_torch.matcher.workset import ListWork
@@ -4733,6 +4761,9 @@ def run_mesh(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips, n
         inputs[name] = (enc[0][rows], enc[1][rows], want)
     grid_rows = {}
     shape_rows = {}
+    # kernel A's byte-step loop in the SASS, for the members' ALU-pipe bound
+    sass = sass_alu.sass_of(nfa_match.KERNEL.path) if dev.type == "cuda" else None
+    step_loops = {}
     for dp, rp in grids:
         tag = f"{dp}x{rp}"
         t0 = time.perf_counter()
@@ -4805,15 +4836,23 @@ def run_mesh(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips, n
             err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
             check(err == 0, f"kernel A (mesh {tag} {name}) is bit-identical to its plain version")
             bound, by = nfa_bound_ms(slab, c, ln)
+            R = nfa_match.lines_per_thread(slab, n, dev)
+            key = ("free" if slab.carry_free else "carry", R)
+            if sass is not None and key not in step_loops:
+                step_loops[key] = sass_alu.count(sass, not slab.carry_free, R)
+            alu = step_loops[key]["alu_per_line_byte"] if sass is not None else None
             shape_rows[f"mesh_{tag}_{name}"] = {
                 "lines": n, "bytes": L_p, "words": slab.n_words, "shards": slab.n_shards,
                 "classes": slab.n_classes, "carry": not slab.carry_free,
                 "line_bytes": line_bytes(c, ln), "max_abs_err": err,
-                "lines_per_thread": nfa_match.lines_per_thread(slab, n, dev),
+                "lines_per_thread": R, "alu_per_line_byte_word": alu,
                 "ms": time_ms(lambda: nfa_match.accept_words(slab, c, ln), dev, 20),
                 "device_ms": graph_ms(lambda: nfa_match.accept_words(slab, c, ln), dev),
+                "host_enqueue_us": host_enqueue_us(
+                    lambda: nfa_match.accept_words(slab, c, ln), dev),
                 "plain_ms": time_ms(lambda: nfa_match.accept_words_plain(slab, c, ln), dev, 2),
                 "bound_ms": bound, "bound_by": by,
+                "alu_bound_ms": None if alu is None else nfa_alu_bound_ms(slab, c, ln, alu),
             }
         del card, host
 
@@ -4937,6 +4976,310 @@ def run_mesh(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips, n
     return launches, shape_rows
 
 
+def run_matcher_modes(dev, n_rules, batch_lines, max_line_len, capacity, chunks, n_ips,
+                      n_offenders, offender_hits, chunks_per_call, depths, prefix_lines,
+                      cross_check_capacity) -> tuple:
+    """The matcher modes beside the single program, on `dev`, each on a
+    fresh matcher, in turns in one process, over `mesh`'s traffic (the
+    main path's rules and chunks, plus the all-attack chunk):
+
+    (1) the single program (`pallas_single_kernel: on`), synchronous: the
+        comparison base;
+    (2) the two programs (`pallas_single_kernel: off`), synchronous;
+    (3) the same through `PipelineScheduler` at each drain_resolve_depth
+        of `depths`;
+    (4) host windows (`matcher_device_windows: false`), synchronous and
+        pipelined;
+    (5) `matcher: cpu` (`CpuMatcher`, Python `re`) on the first
+        `prefix_lines` lines, against (1) and (4) on the same prefix.
+
+    Every mode's ban-log bytes and result keys must be (1)'s,
+    `format_states` (1)'s for (2)-(3) and, on the prefix, (4)'s for (5);
+    nothing may be shed. Before the drives, program A's buffer and
+    program B's event buffer on a traffic chunk and the attack chunk
+    must equal a two-program matcher's on the CPU (plain versions,
+    `cross_check_capacity` slots: the slot numbering is the same),
+    tolerance 0. Kernel launches a `consume_lines` call must be the
+    predicted ones: A 2 and B 1 a chunk on the single and two-program
+    paths, A 2 and B 0 with host windows; the call holding the attack
+    chunk adds one single-stage launch of A (its candidates overflow),
+    with host windows one a chunk of the call (the whole call reruns
+    single-stage); the pipelined runs take the synchronous calls'
+    batches, and launch what those did. Reported: lines/s, host µs a line by stage,
+    DrainResolveOverlapMs. Returns (the drives' launches of A, B and C,
+    the phase's summary)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from banjax_tpu_torch import workload
+    from banjax_tpu_torch.cli import build_matcher
+    from banjax_tpu_torch.config import config_from_yaml_text
+    from banjax_tpu_torch.decisions.dynamic_lists import DynamicDecisionLists
+    from banjax_tpu_torch.decisions.rate_limit import RegexRateLimitStates
+    from banjax_tpu_torch.decisions.static_lists import StaticDecisionLists
+    from banjax_tpu_torch.effectors.banner import Banner
+    from banjax_tpu_torch.matcher.cpu_ref import CpuMatcher
+    from banjax_tpu_torch.matcher.fused_windows import PipelineOverflow
+    from banjax_tpu_torch.pipeline.scheduler import PipelineScheduler
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    patterns = workload.generate_rules(n_rules, seed=SEED)
+    now = time.time()
+    lines = workload.access_log(
+        chunks * batch_lines, patterns, now, seed=SEED, n_ips=n_ips,
+        n_offenders=n_offenders, offender_hits=offender_hits,
+    )
+    attack = workload.attack_lines(batch_lines, patterns, now, seed=SEED)
+    burst_at = (chunks // 2) * batch_lines
+    lines[burst_at:burst_at] = attack
+    per_call = chunks_per_call * batch_lines
+    calls = [lines[s : s + per_call] for s in range(0, len(lines), per_call)]
+    attack_call = burst_at // per_call
+    # one parse of the rules; each mode is a copy with its keys
+    base = config_from_yaml_text(workload.rules_config(
+        patterns, seed=SEED, matcher="tpu", matcher_batch_lines=batch_lines,
+        matcher_max_line_len=max_line_len, matcher_device_windows=True,
+        matcher_window_capacity=capacity, matcher_prefilter=True, pallas_single_kernel="on",
+    ))
+
+    def new_matcher(device, **keys):
+        cfg = dataclasses.replace(base, **keys)
+        log = io.StringIO()
+        states = RegexRateLimitStates()
+        banner = Banner(DynamicDecisionLists(start_sweeper=False), log, io.StringIO())
+        m = build_matcher(cfg, banner, StaticDecisionLists(cfg), states, device=device)
+        return m, log, states
+
+    def reset_launches():
+        for lib in kernel_libs().values():
+            lib.reset_launches()
+
+    def states_of(m, states):
+        return (m.device_windows or states).format_states()
+
+    # ---- program A's and program B's buffers, card against CPU ----
+    t0 = time.perf_counter()
+    card, _, _ = new_matcher(dev, pallas_single_kernel="off")
+    host, _, _ = new_matcher(cpu, pallas_single_kernel="off",
+                             matcher_window_capacity=cross_check_capacity)
+    buffers = {}
+    subs = []
+    for name, chunk in (("traffic", lines[:batch_lines]), ("attack", attack)):
+        pair = []
+        for m in (card, host):
+            st = m.pipeline_begin(chunk, now)
+            pair.append((m, m._submit_pipeline_chunk(st["work"], *st["pre"][:2])))
+        subs.append((name, pair))
+    for name, pair in subs:
+        got = []
+        for m, e in pair:
+            p, fw = e["pend"], m._fw_pipeline
+            try:
+                fw.resolve(p)
+                ok = True
+            except PipelineOverflow:
+                ok = False
+                m.device_windows.release_pins(e["slots"])
+                fw.fallback_done(p)
+            events = None
+            if ok:
+                if p.events_copied is not None:
+                    p.events_copied.synchronize()
+                events = p.events_buf.numpy().tobytes()
+                fw.collect(p)
+            got.append((ok, p.buf.numpy().tobytes(), events, [int(x) for x in p.flags],
+                        np.asarray(e["slots"])))
+        (c_ok, c_a, c_b, c_flags, c_slots), (h_ok, h_a, h_b, h_flags, h_slots) = got
+        buffers[name] = {"ok": c_ok, "flags": c_flags, "a_bytes": len(c_a),
+                         "b_bytes": None if c_b is None else len(c_b),
+                         "a_identical": c_a == h_a, "b_identical": c_b == h_b,
+                         "slots_identical": bool(np.array_equal(c_slots, h_slots))}
+        check(c_ok == h_ok and c_slots.shape == h_slots.shape
+              and buffers[name]["slots_identical"],
+              f"matcher_modes: the {name} chunk resolved as on the CPU")
+        check(c_a == h_a, f"matcher_modes: program A's buffer ({name}) equals the CPU's")
+        check(c_b == h_b, f"matcher_modes: program B's event buffer ({name}) equals the CPU's")
+    check(buffers["traffic"]["ok"] and not buffers["attack"]["ok"],
+          "matcher_modes: the traffic chunk committed, the attack chunk overflowed")
+    card.close()
+    host.close()
+    del card, host
+    gc.collect()
+    buffers_s = time.perf_counter() - t0
+
+    # ---- the drives ----
+    def drive_sync(m):
+        keys, per = [], []
+        sync(dev)
+        t0 = time.perf_counter()
+        for batch in calls:
+            before = launch_counts()
+            keys += [result_key(r) for r in m.consume_lines(batch, now_unix=now)]
+            after = launch_counts()
+            per.append({k: after[k] - before[k] for k in after})
+        sync(dev)
+        return keys, time.perf_counter() - t0, per
+
+    def drive_pipelined(m):
+        """Every line buffered before the start, taken in the synchronous
+        calls' batches (so that a depth-2 drain has later chunks to
+        overlap)."""
+        collected = []
+        sch = PipelineScheduler(
+            lambda: m, now_fn=lambda: now, min_batch=per_call, max_batch=per_call,
+            on_results=lambda bl, rs: collected.append([result_key(r) for r in rs]))
+        for s in range(0, len(lines), batch_lines):
+            sch.submit(lines[s : s + batch_lines])
+        sync(dev)
+        t0 = time.perf_counter()
+        sch.start()
+        try:
+            flushed = sch.flush(300)
+        finally:
+            sch.stop()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        return ([k for ks in collected for k in ks], wall, flushed,
+                sch.stats.peek()["PipelineShedLines"], len(collected))
+
+    rows = {}
+    totals = {k: 0 for k in kernel_libs()}
+    base_out = None
+
+    def run_mode(tag, pipelined, **keys):
+        nonlocal base_out
+        m, log, states = new_matcher(dev, **keys)
+        gc.collect()
+        reset_launches()
+        if pipelined:
+            got, wall, flushed, shed, batches = drive_pipelined(m)
+            per = None
+        else:
+            got, wall, per = drive_sync(m)
+            flushed, shed, batches = True, 0, len(calls)
+        launches = launch_counts()
+        for k, v in launches.items():
+            totals[k] += v
+        fw = m._fw_pipeline
+        row = {"pipelined": pipelined, "wall_s": wall, "lines_per_s": len(lines) / wall,
+               "batches": batches, "shed_lines": shed, "launches": launches,
+               "launches_per_call": per,
+               "two_program": fw is not None and not fw.single_kernel,
+               "device_windows": m.device_windows is not None,
+               "fused_chunks": None if fw is None else fw.fused_batches,
+               "fallback_chunks": None if fw is None else fw.fallback_batches,
+               "pipelined_fused_chunks": m.pipelined_fused_chunks,
+               "pipelined_fused_fallbacks": m.pipelined_fused_fallbacks,
+               "drain_resolve_depth": m.config.drain_resolve_depth,
+               "drain_resolve_overlap_ms": m.drain_resolve_overlap_ms_ewma,
+               "host_us_per_line_by_stage": stage_us(m, len(lines)),
+               "ban_log_lines": log.getvalue().count("\n")}
+        out = (got, log.getvalue(), states_of(m, states))
+        if base_out is None:
+            base_out = out
+        row["result_keys_identical"] = got == base_out[0]
+        row["ban_log_identical"] = out[1] == base_out[1]
+        row["states_identical"] = out[2] == base_out[2]
+        rows[tag] = row
+        m.close()
+        del m
+        check(flushed and shed == 0, f"matcher_modes {tag}: drained, nothing shed ({shed})")
+        check(row["result_keys_identical"] and row["ban_log_identical"],
+              f"matcher_modes {tag}: result keys and ban log equal the single program's")
+        return row
+
+    def check_calls(tag, row, b_per_chunk, attack_extra_a):
+        """A and B a consume_lines call: the predicted counts (a CPU
+        rehearsal launches nothing, and is not checked)."""
+        if dev.type != "cuda" and not any(sum(c.values()) for c in row["launches_per_call"]):
+            return
+        for i, (batch, got) in enumerate(zip(calls, row["launches_per_call"])):
+            n = -(-len(batch) // batch_lines)
+            if i == attack_call:
+                ok = (got["nfa_match"] == 2 * n + attack_extra_a(n)
+                      and (got["window_scan"] >= n if b_per_chunk else got["window_scan"] == 0))
+            else:
+                ok = got["nfa_match"] == 2 * n and got["window_scan"] == b_per_chunk * n
+            check(ok and got["pow_verify"] == 0,
+                  f"matcher_modes {tag}: launches of call {i} ({n} chunks) are the "
+                  f"predicted ones: {got}")
+
+    single = run_mode("single_sync", False, pallas_single_kernel="on")
+    check(single["ban_log_lines"] > 0, "matcher_modes: the single program banned the offenders")
+    check_calls("single_sync", single, 1, lambda n: 1)
+    two = run_mode("two_program_sync", False, pallas_single_kernel="off")
+    check(two["two_program"] and two["fused_chunks"] > 0 and two["fallback_chunks"] > 0,
+          "matcher_modes: the two programs committed chunks and fell back on the attack chunk")
+    check_calls("two_program_sync", two, 1, lambda n: 1)
+    for depth in depths:
+        r = run_mode(f"two_program_pipelined_depth{depth}", True, pallas_single_kernel="off",
+                     drain_resolve_depth=depth)
+        check(r["pipelined_fused_chunks"] > 0 and r["pipelined_fused_fallbacks"] > 0,
+              f"matcher_modes depth {depth}: the drain committed chunks through program B "
+              "and replayed the attack chunk")
+        check(r["launches"] == two["launches"],
+              f"matcher_modes depth {depth}: the synchronous calls' launches ({r['launches']})")
+    for tag, pipelined in (("host_windows_sync", False), ("host_windows_pipelined", True)):
+        r = run_mode(tag, pipelined, matcher_device_windows=False)
+        check(not r["device_windows"] and r["fused_chunks"] is None,
+              f"matcher_modes {tag}: host windows")
+        check(dev.type != "cuda" or (r["launches"]["window_scan"] == 0
+                                     and r["launches"]["nfa_match"] > 0),
+              f"matcher_modes {tag}: kernel A and no kernel B: {r['launches']}")
+        if not pipelined:
+            check_calls(tag, r, 0, lambda n: n)
+        else:
+            check(r["launches"] == rows["host_windows_sync"]["launches"],
+                  f"matcher_modes {tag}: the synchronous calls' launches ({r['launches']})")
+    for tag, r in rows.items():
+        if r["device_windows"]:
+            check(r["states_identical"], f"matcher_modes {tag}: format_states equal (1)'s")
+
+    # ---- (5) matcher: cpu on the prefix, against (1) and (4) ----
+    prefix = lines[:prefix_lines]
+    pre = {}
+    for tag, keys, device in (("single", dict(pallas_single_kernel="on"), dev),
+                              ("host_windows", dict(matcher_device_windows=False), dev),
+                              ("cpu", dict(matcher="cpu"), None)):
+        m, log, states = new_matcher(device, **keys)
+        reset_launches()
+        t0 = time.perf_counter()
+        got = [result_key(r) for r in m.consume_lines(prefix, now_unix=now)]
+        sync(dev)
+        pre[tag] = {"keys": got, "log": log.getvalue(), "states": states_of(m, states),
+                    "seconds": time.perf_counter() - t0, "launches": launch_counts(),
+                    "class": type(m).__name__}
+        m.close()
+        del m
+    check(pre["cpu"]["class"] == CpuMatcher.__name__, "matcher: cpu built CpuMatcher")
+    check(sum(pre["cpu"]["launches"].values()) == 0, "CpuMatcher launched no kernel")
+    prefix_row = {
+        "lines": len(prefix),
+        "seconds": {k: v["seconds"] for k, v in pre.items()},
+        "ban_log_lines": pre["cpu"]["log"].count("\n"),
+        "result_keys_identical": pre["cpu"]["keys"] == pre["single"]["keys"]
+        == pre["host_windows"]["keys"],
+        "ban_log_identical": pre["cpu"]["log"] == pre["single"]["log"]
+        == pre["host_windows"]["log"],
+        "states_identical_host_windows": pre["cpu"]["states"] == pre["host_windows"]["states"],
+    }
+    check(prefix_row["result_keys_identical"] and prefix_row["ban_log_identical"],
+          "matcher_modes: CpuMatcher's results and ban log equal the card's on the prefix")
+    check(prefix_row["states_identical_host_windows"],
+          "matcher_modes: CpuMatcher's states equal host windows' on the prefix")
+    check(prefix_row["ban_log_lines"] > 0, "matcher_modes: the prefix produced bans")
+
+    summary = {"phase": "matcher_modes", "rules": n_rules, "batch_lines": batch_lines,
+               "lines": len(lines), "window_slots": capacity, "tolerance": 0,
+               "buffers": buffers, "buffers_s": buffers_s, "modes": rows,
+               "cpu_prefix": prefix_row, "seconds": time.perf_counter() - t_phase}
+    emit(summary)
+    return totals, summary
+
+
 def main() -> int:
     import torch
 
@@ -5000,6 +5343,9 @@ def main() -> int:
     t0 = time.perf_counter()
     meshed, mesh_shapes = run_mesh(dev, **MESH)
     emit({"phase": "mesh_seconds", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    modes, _ = run_matcher_modes(dev, **MATCHER_MODES)
+    emit({"phase": "matcher_modes_seconds", "seconds": time.perf_counter() - t0})
     for k in kernels:
         k.setdefault("launches_by_path", {"challenge_path": k["launches"]})
         k["launches_by_path"]["service"] = service[k["name"]]
@@ -5017,10 +5363,13 @@ def main() -> int:
         # the device mesh's matchers (the backend checks against the CPU
         # are comparisons, not counted)
         k["launches_by_path"]["mesh"] = meshed[k["name"]]
+        # the two programs, host windows and matcher: cpu (the buffers'
+        # card-vs-CPU comparison is not counted)
+        k["launches_by_path"]["matcher_modes"] = modes[k["name"]]
         k["launches"] += (service[k["name"]] + pipeline[k["name"]] + observed[k["name"]]
                           + kafka[k["name"]] + served[k["name"]] + fabric[k["name"]]
                           + scenarios[k["name"]] + dryrun[k["name"]] + ua_fused[k["name"]]
-                          + meshed[k["name"]])
+                          + meshed[k["name"]] + modes[k["name"]])
         if k["name"] == "nfa_match":
             k["shapes"].update(mesh_shapes)
             k["max_abs_err"] = max(r["max_abs_err"] for r in k["shapes"].values())

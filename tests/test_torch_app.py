@@ -203,11 +203,6 @@ _TIMED = ("Time", "PerSec", "Ms", "Latency", "Ewma", "Utilization", "Skew", "Age
           "Batches", "Buffered", "Inflight")
 
 
-# the JAX matcher's health component for its single-kernel choice: the
-# port runs only the single-program commit and has no such component
-JAX_ONLY_HEALTH = "matcher-single-kernel"
-
-
 def _deterministic(values):
     return {k: v for k, v in values.items() if not any(t in k for t in _TIMED)}
 
@@ -227,9 +222,10 @@ def _prom(text, parse):
 
 def test_observability_agrees_with_the_jax_app(tmp_path, monkeypatch):
     """Both apps pipelined, tracing on, tailing one log: the metrics line's
-    and /metrics' deterministic values, the provenance records and the span
-    tree of every batch agree, and the JAX keys the port leaves out are
-    exactly the documented ones."""
+    and /metrics' deterministic values (the "matcher-single-kernel" health
+    component's among them), the provenance records and the span tree of
+    every batch agree, and the JAX keys the port leaves out are exactly
+    the documented ones."""
     from banjax_tpu.obs import exposition as jax_expo
     from banjax_tpu.obs import metrics as jax_metrics
     from banjax_tpu.obs import provenance as jax_prov
@@ -286,8 +282,9 @@ def test_observability_agrees_with_the_jax_app(tmp_path, monkeypatch):
         jax_line, port_line = lines
         assert all(port_reg.is_declared_line_key(k) for k in port_line)
         assert set(port_line) <= set(jax_line)
-        assert set(jax_line) - set(port_line) == \
-            (DIFFERENT_MEANING & set(jax_line)) | {f"Health_{JAX_ONLY_HEALTH}"}
+        assert set(jax_line) - set(port_line) == DIFFERENT_MEANING & set(jax_line)
+        assert port_line["Health_matcher-single-kernel"] == \
+            jax_line["Health_matcher-single-kernel"]
         assert _deterministic(port_line) == {k: v for k, v in _deterministic(jax_line).items()
                                              if k in port_line}
         assert port_line["MatcherLinesTotal"] == total == port_line["PipelineAdmittedLines"]
@@ -300,8 +297,8 @@ def test_observability_agrees_with_the_jax_app(tmp_path, monkeypatch):
         jax_prom, port_prom = parsed[0][0], parsed[1][0]
         fams = port_expo.parse_text_format(texts[1])
         assert set(fams) <= set(port_reg.PROM_FAMILIES)
-        assert port_prom == {k: v for k, v in jax_prom.items()
-                             if k[0] in fams and ("component", JAX_ONLY_HEALTH) not in k[2]}
+        assert port_prom == {k: v for k, v in jax_prom.items() if k[0] in fams}
+        assert any(("component", "matcher-single-kernel") in k[2] for k in port_prom)
         assert port_prom[("banjax_matcher_lines_total", "banjax_matcher_lines_total", ())] == total
 
         # the provenance records and the span tree of every batch

@@ -8,7 +8,8 @@ the JAX package's, on the CPU, tolerance 0.
   JAX's.
 - `ScenarioRunner` on the CPU (the kernels' plain versions) gives the JAX
   runner's (`matcher_backend: xla`) ban multiset and the oracle's on
-  flash_crowd, benign (single_kernel auto and on; "off" raises) and
+  flash_crowd (also with single_kernel "off", the two-program mode),
+  benign (single_kernel auto and on) and
   challenge_storm with its challenge loop; the tailer and Kafka modes
   against the oracle; a seeded chaos run with `matcher.device` episodes
   closes the accounting with the refused lines in drain_error_lines and
@@ -176,11 +177,18 @@ def test_benign_gives_no_bans_and_a_clean_slo_board(single_kernel):
 
 
 def test_single_kernel_off_raises():
-    """The JAX soak also runs the two-program mode; the port has only the
-    single-program commit."""
-    with pytest.raises(ValueError, match="not ported"):
-        ScenarioRunner(shapes.generate("benign", SEED, 0.1), device="cpu",
-                       single_kernel="off").run()
+    """single_kernel "off" runs the two-program mode (program A at submit,
+    program B at the drain), as the JAX soak does: flash_crowd's bans
+    equal JAX's two-program run's and the oracle's, with every chunk
+    committed by program B or its counted classic fallback."""
+    rep = ScenarioRunner(shapes.generate("flash_crowd", SEED, 0.25), device="cpu",
+                         single_kernel="off").run()
+    jrep = _jax_run(jax_shapes.generate("flash_crowd", SEED, 0.25), single_kernel="off")
+    _check_clean(rep)
+    assert rep.oracle_bans > 0 and rep.engine_bans == rep.oracle_bans
+    assert (rep.engine_bans, rep.true_positives, rep.n_lines) == \
+        (jrep.engine_bans, jrep.true_positives, jrep.n_lines)
+    assert rep.single_kernel == "off"
 
 
 def test_challenge_storm_loop_equals_jax(tmp_path):

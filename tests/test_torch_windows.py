@@ -217,6 +217,33 @@ def test_kernel_b_matches_plain_on_the_card_on_edge_shapes(cuda_device):
             assert torch.equal(w, g.cpu()), (name, len(xs[0]))
 
 
+@pytest.mark.cuda
+def test_kernel_b_writes_nothing_past_its_outputs(cuda_device):
+    """A launch on E events that cut a thread's group of four (E not a
+    multiple of 4, or a last tile shorter than the block) writes its
+    outputs and nothing after them: each output row is followed by
+    sentinels, and the first E values are the plain version's."""
+    from banjax_tpu_torch.matcher.kernels._build import raw_stream
+
+    dev = torch.device("cuda", cuda_device.index or 0)
+    slack = 64
+    for E in (1, 3, 4, 5, 63, 64, 65, 1000, 4095, 4097, 8191, 12289):
+        xs_np = _stimulus(E, E)
+        want = fmw.window_scan_plain([torch.from_numpy(x) for x in xs_np])
+        xs = [torch.from_numpy(x).to(dev) for x in xs_np]
+        out = torch.full((4, E + slack), -123456789, dtype=torch.int32, device=dev)
+        ex = torch.full((E + slack,), 7, dtype=torch.uint8, device=dev)
+        rows = [out[r].data_ptr() for r in range(4)]
+        fmw.KERNEL.call("window_scan_launch", *[x.data_ptr() for x in xs], *rows,
+                        ex.data_ptr(), E, dev.index, raw_stream(dev))
+        got = out.cpu()
+        for r, name in enumerate(NAMES[:4]):
+            assert torch.equal(want[r], got[r, :E]), (name, E)
+        assert torch.equal(want[4], ex[:E].cpu().view(torch.bool)), ("exceeded", E)
+        assert (got[:, E:] == -123456789).all(), ("int32 output written past E", E)
+        assert (ex[E:].cpu() == 7).all(), ("exceeded written past E", E)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
